@@ -1,0 +1,61 @@
+"""Carry weights and state between the reference package and the port.
+
+The reference keeps params and caches as pytrees of JAX arrays; the port
+keeps the same trees (nested dicts) of torch tensors.  The bridge speaks
+numpy on the JAX side, so this module imports no JAX: callers hand it
+``jax.tree.map(np.asarray, tree)`` and get numpy trees back.
+
+  * fp32 and int32 arrays transfer bitwise;
+  * bf16 arrays (``ml_dtypes.bfloat16`` in numpy, which
+    ``torch.from_numpy`` cannot take) go through float32, which holds every
+    bf16 value exactly, and are cast back to bf16 on the torch side;
+  * :func:`caches_to_numpy` returns bf16 tensors as float32 numpy arrays,
+    so a cache compares against the reference's ``cache.astype(float32)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ops import resolve_device
+
+__all__ = ["params_from_jax", "caches_from_jax", "caches_to_numpy"]
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(arr, device=device)  # a copy: JAX's buffers are read-only
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def params_from_jax(tree, device=None) -> dict:
+    """A reference params tree (numpy leaves) as the port's tensors on
+    ``device`` (default: the current CUDA device)."""
+    device = resolve_device(device)
+    return _map(tree, lambda a: _to_torch(a, device))
+
+
+def caches_from_jax(tree, device=None) -> dict:
+    """A reference caches tree (numpy leaves) as the port's tensors on
+    ``device`` (default: the current CUDA device)."""
+    device = resolve_device(device)
+    return _map(tree, lambda a: _to_torch(a, device))
+
+
+def caches_to_numpy(tree) -> dict:
+    """The port's caches as numpy (bf16 -> float32, exact)."""
+    def conv(t: torch.Tensor):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _map(tree, conv)

@@ -1,0 +1,132 @@
+"""Dispatch layer of the port's decode-path kernels.
+
+The model and serving code call these wrappers when ``use_kernels`` is on:
+
+  * :func:`flash_decode` — single-token GQA decode attention reading the
+    compacted survivor rows straight out of the full-batch resident KV
+    cache through a row map (``models.attention.attn_apply`` decode);
+  * :func:`entropy_exit_argmax_heads` — the fused BranchyNet exit decision
+    of K stacked branch heads in one launch (``serving.tiers``);
+  * :func:`entropy_exit_argmax` — the single-head form, the same kernel's
+    K = 1 launch (``TierExecutor(batched_heads=False)``).
+
+A wrapper given CPU tensors runs the plain PyTorch version
+(:mod:`repro_torch.kernels.ref`); given CUDA tensors it launches the
+hand-written Hopper kernel or raises — there is no fallback.  Each wrapper
+adds one to ``launches[name]`` where it launches its kernel and nowhere
+else, so a run can show that its main path went through the kernels.
+
+``use_kernels`` resolution (:func:`resolve_use_kernels`): None = kernels on
+a CUDA device, plain versions on the CPU; asking for the kernels (True, or
+None on a CUDA card) anywhere but a CUDA sm_90 device raises; False =
+plain versions everywhere.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+__all__ = [
+    "entropy_exit_argmax",
+    "entropy_exit_argmax_heads",
+    "flash_decode",
+    "launches",
+    "on_cuda_sm90",
+    "reset_launches",
+    "resolve_device",
+    "resolve_use_kernels",
+]
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+launches: dict[str, int] = {
+    "flash_decode": 0,
+    "entropy_exit_argmax_heads": 0,
+    "entropy_exit_argmax": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def on_cuda_sm90(device=None) -> bool:
+    """True when ``device`` (default: the current CUDA device) is a CUDA
+    device of compute capability 9.0 (Hopper)."""
+    if not torch.cuda.is_available():
+        return False
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        return False
+    return torch.cuda.get_device_capability(dev) == (9, 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the current CUDA device when
+    ``device`` is None, else ``device``.  Raises when CUDA is asked for
+    (explicitly or by default) and none is present — pass ``device="cpu"``
+    to run the plain versions on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the port on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} asked for but CUDA is not available")
+    return dev
+
+
+def resolve_use_kernels(flag: bool | None, device) -> bool:
+    """The ``use_kernels`` tri-state for an entry point on ``device``:
+    None = the kernels on a CUDA device, the plain versions on the CPU.
+    The kernels are built for sm_90a only, so asking for them on anything
+    but a CUDA sm_90 device — by True, or by None on another CUDA card —
+    raises; ``False`` is the one way to run the plain versions on a card."""
+    dev = torch.device(device)
+    if flag is False or (flag is None and dev.type != "cuda"):
+        return False
+    if not on_cuda_sm90(dev):
+        raise RuntimeError(
+            f"the Hopper kernels need a CUDA sm_90 device, got {dev}; "
+            "pass use_kernels=False to run the plain versions")
+    return True
+
+
+def entropy_exit_argmax_heads(logits: torch.Tensor, thresholds):
+    """(K, B, V) stacked branch-head logits -> (normalized entropy (K, B),
+    exit flags (K, B), argmax token (K, B) int32); ``thresholds`` is a
+    scalar (every head) or (K,)."""
+    if not logits.is_cuda:
+        return ref.entropy_exit_argmax_heads_ref(logits, thresholds)
+    from repro_torch.kernels.entropy_exit import entropy_exit_argmax_heads_cuda
+
+    out = entropy_exit_argmax_heads_cuda(logits, thresholds)
+    launches["entropy_exit_argmax_heads"] += 1
+    return out
+
+
+def entropy_exit_argmax(logits: torch.Tensor, threshold):
+    """Single-head exit decision: (B, V) -> (entropy (B,), flag (B,), token
+    (B,) int32) — the multi-head kernel's K = 1 launch."""
+    if not logits.is_cuda:
+        return ref.entropy_exit_argmax_ref(logits, threshold)
+    from repro_torch.kernels.entropy_exit import entropy_exit_argmax_heads_cuda
+
+    h, flag, idx = entropy_exit_argmax_heads_cuda(logits[None], threshold)
+    launches["entropy_exit_argmax"] += 1
+    return h[0], flag[0], idx[0]
+
+
+def flash_decode(q, k, v, k_pos, q_pos, rows=None, *, window: int = 0):
+    """Single-token GQA decode attention against a (ring) KV cache; ``rows``
+    maps a compacted survivor sub-batch onto cache rows."""
+    if not q.is_cuda:
+        return ref.flash_decode_ref(q, k, v, k_pos, q_pos, rows, window)
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+
+    out = flash_decode_cuda(q, k, v, k_pos, q_pos, rows, window=window)
+    launches["flash_decode"] += 1
+    return out

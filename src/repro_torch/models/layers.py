@@ -1,0 +1,98 @@
+"""Primitive layers: dense, norms, RoPE, the SwiGLU MLP, embeddings.
+
+Counterparts of ``repro.models.layers``.  Functions on tensors: parameters
+are kept in fp32 and cast to the compute dtype at use; norm reductions stay
+in fp32.  ``dense`` and ``embed`` cast a weight only when it is not already
+bf16, so a caller that holds bf16 compute copies of its fp32 weights
+(:func:`repro_torch.models.model.compute_params`) gets bitwise the same
+result without paying the cast at every call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "truncated_normal_",
+    "dense",
+    "rmsnorm",
+    "norm_apply",
+    "rope_frequencies",
+    "apply_rope",
+    "silu",
+    "mlp_apply",
+    "embed",
+]
+
+
+def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
+                      scale: float = 1.0) -> torch.Tensor:
+    """In-place truncated normal on [-2, 2] times ``scale`` (the reference's
+    fan-in ``dense_init`` uses ``scale = 1/sqrt(d_in)``)."""
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale)
+
+
+def dense(w: torch.Tensor, x: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``x @ w`` in ``dtype`` (the reference's ``einsum("...i,io->...o")``
+    after casting both operands)."""
+    return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+def norm_apply(norm_type: str, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if norm_type == "rmsnorm":
+        return rmsnorm(params, x)
+    raise NotImplementedError(f"the port has no {norm_type!r} norm yet")
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for rotary embedding; (head_dim // 2,) fp32."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(
+    x: torch.Tensor,  # (..., seq, heads, head_dim)
+    positions: torch.Tensor,  # (..., seq) absolute token positions
+    theta: float,
+) -> torch.Tensor:
+    """Rotate the split halves (x[:D/2], x[D/2:]) — what the reference code
+    does; its docstring's "pairs" is wrong.  fp32 trig, output in x.dtype."""
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * inv_freq  # (..., S, D/2)
+    cos = torch.cos(angles)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))`` op by op in x's dtype — the reference's
+    ``jax.nn.silu`` lowering, which rounds after every op in bf16
+    (``F.silu`` rounds once and differs in about a third of bf16 outputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    dtype = x.dtype
+    if mlp_type == "swiglu":
+        g = dense(params["w_gate"], x, dtype)
+        u = dense(params["w_up"], x, dtype)
+        return dense(params["w_down"], silu(g) * u, dtype)
+    raise NotImplementedError(f"the port has no {mlp_type!r} MLP yet")
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return table.to(dtype)[tokens]
+

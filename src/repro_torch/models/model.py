@@ -1,0 +1,302 @@
+"""BranchyModel for the dense GQA trunk: backbone + tied side branches,
+with prefill / decode entry points — counterpart of ``repro.models.model``.
+
+Trunk layers are numbered 1..L like the paper's ``v_i``; side branches sit
+after the layers in ``cfg.branch_layers`` and are collected by
+``run_trunk(collect=...)``.  Branch heads are tied to the main LM head
+(per-branch norm + shared unembedding), as in the reference.
+
+Params (the reference's pytree layout, as tensors):
+    {"embed": (V, D), "blocks": stacked (L, ...) block params,
+     "final_norm": {"scale": (D,)}, "lm_head": (D, V),
+     "branches": {"scale": (n_branches, D)}}
+Caches (full-batch resident, updated in place):
+    {"length": () int32, "blocks": {"self": {"k", "v": (L, B, C, Kh, D),
+     "pos": (L, B, C) int32, "length": (L,) int32}}}
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.calibration import normalized_entropy
+from repro_torch.kernels.ops import resolve_device, resolve_use_kernels
+from repro_torch.models.attention import init_kv_cache
+from repro_torch.models.layers import (
+    dense,
+    embed,
+    norm_apply,
+    truncated_normal_,
+)
+from repro_torch.models.transformer import BlockKind, run_stack
+
+__all__ = [
+    "branch_logits_per_head",
+    "branch_logits_stacked",
+    "compute_dtype",
+    "compute_params",
+    "decode_step",
+    "embed_decode",
+    "init_caches",
+    "init_params",
+    "prefill",
+    "run_trunk",
+    "trunk_layout",
+]
+
+_MATMUL_LEAVES = frozenset(
+    {"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def trunk_layout(cfg: ModelConfig) -> list[tuple[str, BlockKind, int]]:
+    """Ordered stacks composing the trunk: (param key, kind, n_layers)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"the port runs dense trunks only, not {cfg.arch_type!r}")
+    return [("blocks", BlockKind("gqa", "dense"), cfg.num_layers)]
+
+
+def _total_layers(cfg: ModelConfig) -> int:
+    return sum(n for _, _, n in trunk_layout(cfg))
+
+
+# ---------------------------------------------------------------- init
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random fp32 params drawn from ``generator`` (which must live on
+    ``device``, by default the current CUDA device): fan-in scaled
+    truncated normals for the projections, N(0, 0.02^2) for the embedding
+    and LM head, unit norm scales."""
+    trunk_layout(cfg)
+    device = resolve_device(device)
+    d, ff, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    v = cfg.padded_vocab_size
+
+    def normal(*shape, std):
+        return torch.randn(shape, generator=generator, device=device).mul_(std)
+
+    def proj(d_in, d_out):
+        t = torch.empty((L, d_in, d_out), device=device)
+        return truncated_normal_(t, generator, d_in ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device)
+
+    params = {"embed": normal(v, d, std=0.02)}
+    params["blocks"] = {
+        "norm1": {"scale": ones(L, d)},
+        "attn": {
+            "wq": proj(d, cfg.q_dim),
+            "wk": proj(d, cfg.kv_dim),
+            "wv": proj(d, cfg.kv_dim),
+            "wo": proj(cfg.q_dim, d),
+        },
+        "norm2": {"scale": ones(L, d)},
+        "mlp": {
+            "w_gate": proj(d, ff),
+            "w_up": proj(d, ff),
+            "w_down": proj(ff, d),
+        },
+    }
+    params["final_norm"] = {"scale": ones(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(d, v, std=0.02)
+    if cfg.branch_layers:
+        params["branches"] = {"scale": ones(len(cfg.branch_layers), d)}
+    return params
+
+
+def compute_params(params: dict, dtype=torch.bfloat16) -> dict:
+    """A params tree whose matmul weights are ``dtype`` copies (norm scales
+    stay fp32).  ``dense`` / ``embed`` cast fp32 weights to bf16 at every
+    call, as the reference does; holding the copies once gives bitwise the
+    same results without re-casting ~15 GB of weights every decode step."""
+    def walk(tree):
+        return {
+            k: walk(v) if isinstance(v, dict)
+            else (v.to(dtype) if k in _MATMUL_LEAVES else v)
+            for k, v in tree.items()
+        }
+    return walk(params)
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
+                device=None) -> dict:
+    """Empty full-batch caches on ``device`` (default: the current CUDA
+    device)."""
+    dtype = dtype or compute_dtype(cfg)
+    device = resolve_device(device)
+    cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    caches: dict = {"length": torch.zeros((), dtype=torch.int32, device=device)}
+    for name, _kind, n in trunk_layout(cfg):
+        one = init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim,
+                            dtype, device)
+        caches[name] = {"self": {
+            k: v.expand(n, *v.shape).contiguous() for k, v in one.items()
+        }}
+    return caches
+
+
+# ---------------------------------------------------------------- trunk
+def run_trunk(
+    params: dict,
+    h: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    caches: dict | None = None,
+    *,
+    layer_range: tuple[int, int] | None = None,  # absolute, 0-based [lo, hi)
+    collect: tuple[int, ...] = (),  # 1-based "after layer i" points
+    rows=None,
+    use_kernels: bool = False,
+) -> tuple[torch.Tensor, dict | None, dict[int, torch.Tensor]]:
+    """Run trunk layers [lo, hi), collecting the residual stream after the
+    ``collect`` layers.  Returns (h, caches, {layer: hidden}); caches are
+    updated in place.  ``rows``: h is a sub-batch whose stateful reads and
+    writes go to those rows of the full-batch caches (decode: a device
+    tensor with out-of-bounds sentinels; prefill: a host-side plan)."""
+    (name, kind, n), = trunk_layout(cfg)
+    lo, hi = layer_range or (0, n)
+    stops = sorted({hi, *(c for c in collect if lo < c < hi)})
+    collected: dict[int, torch.Tensor] = {}
+    start = lo
+    for stop in stops:
+        h = run_stack(
+            params[name], h, cfg, kind, positions,
+            caches[name] if caches is not None else None,
+            lo=start, hi=stop, rows=rows, use_kernels=use_kernels,
+        )
+        if stop in collect:
+            collected[stop] = h
+        start = stop
+    return h, caches, collected
+
+
+# ---------------------------------------------------------------- heads
+def _unembed(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = dense(w, h, h.dtype)
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab_size, device=h.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def branch_logits_stacked(
+    params: dict,
+    collected: dict[int, torch.Tensor],
+    cfg: ModelConfig,
+    layers: Sequence[int] | None = None,
+) -> tuple[tuple[int, ...], torch.Tensor | None]:
+    """Batched tied exit heads: one stacked norm + one unembedding matmul
+    for every requested branch present in ``collected``.  Returns
+    ``(layers, logits (K, B, S, V))`` in layer order, ``((), None)`` when
+    none is present."""
+    want = cfg.branch_layers if layers is None else tuple(layers)
+    present = tuple(l for l in want if l in collected)
+    if not present:
+        return (), None
+    idx = [cfg.branch_layers.index(l) for l in present]
+    hs = torch.stack([collected[l] for l in present])  # (K, B, S, D)
+    # Python-int row views: no index tensor has to cross to the device.
+    scale = torch.stack([params["branches"]["scale"][i] for i in idx])
+    bcast = scale.reshape(scale.shape[0], *([1] * (hs.dim() - 2)), -1)
+    hn = norm_apply(cfg.norm_type, {"scale": bcast}, hs)
+    return present, _unembed(params, hn, cfg)
+
+
+def branch_logits_per_head(
+    params: dict, collected: dict[int, torch.Tensor], cfg: ModelConfig
+) -> dict[int, torch.Tensor]:
+    """Sequential reference heads: one norm + one unembedding per branch."""
+    out = {}
+    for j, layer in enumerate(cfg.branch_layers):
+        if layer in collected:
+            hb = norm_apply(cfg.norm_type,
+                            {"scale": params["branches"]["scale"][j]},
+                            collected[layer])
+            out[layer] = _unembed(params, hb, cfg)
+    return out
+
+
+# ---------------------------------------------------------------- serving
+def prefill(
+    params: dict,
+    tokens: torch.Tensor,  # (B, S) int
+    cfg: ModelConfig,
+    caches: dict,
+    *,
+    rows=None,
+) -> tuple[torch.Tensor, dict]:
+    """Process whole prompts; returns (last-position logits (B, 1, V),
+    caches).  ``rows`` (continuous-batching admission, a host-side plan):
+    prompt row i prefills cache row ``rows[i]`` in place, ending exactly as
+    a fresh solo prefill; sentinel rows (>= B) drop their writes and the
+    step counter is untouched."""
+    h = embed(params["embed"], tokens, compute_dtype(cfg))
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    h2, caches, _ = run_trunk(params, h, cfg, positions, caches, rows=rows)
+    if rows is None:
+        caches["length"].fill_(tokens.shape[1])
+    hf = norm_apply(cfg.norm_type, params["final_norm"], h2)
+    return _unembed(params, hf[:, -1:], cfg), caches
+
+
+def embed_decode(params: dict, token: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Embed one decode-step token (B, 1) — the entry of the tier holding
+    trunk layer 1.  ``positions`` is unused by the RoPE trunk (kept for the
+    reference's signature)."""
+    return embed(params["embed"], token, compute_dtype(cfg))
+
+
+def decode_step(
+    params: dict,
+    token: torch.Tensor,  # (B, 1) int
+    pos: torch.Tensor,  # () absolute position of this token
+    caches: dict,
+    cfg: ModelConfig,
+    *,
+    layer_range: tuple[int, int] | None = None,
+    with_branches: bool = True,
+    use_kernels: bool | None = None,  # None = cfg.use_kernels, then auto
+) -> dict[str, Any]:
+    """One lock-step decode step.  Returns logits (or the hidden stream for
+    a partial layer range), per-branch logits / entropies / exit masks, and
+    the caches (updated in place)."""
+    kernels = resolve_use_kernels(
+        cfg.use_kernels if use_kernels is None else use_kernels, token.device)
+    positions = torch.as_tensor(pos, device=token.device).to(torch.int32).reshape(1)
+    h = embed_decode(params, token, positions, cfg)
+    collect = cfg.branch_layers if with_branches else ()
+    h2, caches, collected = run_trunk(
+        params, h, cfg, positions, caches, layer_range=layer_range,
+        collect=collect, use_kernels=kernels,
+    )
+    out: dict[str, Any] = {}
+    if layer_range is None or layer_range[1] == _total_layers(cfg):
+        hf = norm_apply(cfg.norm_type, params["final_norm"], h2)
+        out["logits"] = _unembed(params, hf, cfg)[:, 0]
+    else:
+        out["hidden"] = h2
+    if with_branches:
+        layers, stk = branch_logits_stacked(params, collected, cfg)
+        out["branch_logits"] = {l: stk[k, :, 0] for k, l in enumerate(layers)}
+        out["branch_entropy"] = {
+            l: normalized_entropy(v) for l, v in out["branch_logits"].items()
+        }
+        out["branch_exit"] = {
+            l: e < cfg.exit_threshold for l, e in out["branch_entropy"].items()
+        }
+    caches["length"] += 1
+    out["caches"] = caches
+    return out

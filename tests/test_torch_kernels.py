@@ -1,0 +1,222 @@
+"""The port's decode-path kernels against the reference package on the CPU.
+
+The port's plain versions (``repro_torch.kernels.ref``, which its dispatch
+wrappers run for CPU tensors) are held against the reference's jnp oracles
+(``repro.kernels.ref``) and its Pallas kernels in interpret mode, on the
+same inputs made with numpy.  The Hopper kernels themselves run only on
+the card (``chip_smoke.py`` holds them against these plain versions).
+
+Tolerances:
+  * entropy |dH| <= 1e-5: both sides are fp32 log-softmax sums (or the
+    Pallas online form); they differ by exp/log rounding only;
+  * tokens exact: argmax over identical bf16 values, first index on ties;
+  * flags exact wherever |H - thr| >= 1e-5;
+  * attention: fp32 inputs 1e-5; bf16 outputs within one bf16 ulp
+    (at most 2^-7 relative) plus 1e-5, since each side rounds its fp32
+    result once.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.entropy_exit import (
+    entropy_exit_argmax_heads_pallas,
+    entropy_exit_argmax_pallas,
+)
+from repro.kernels.flash_decode import flash_decode_pallas
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import ref as tref
+
+BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
+
+
+def _bf16(x: np.ndarray):
+    """The same bf16 values on both sides (both round fp32 to nearest even)."""
+    return jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).bfloat16()
+
+
+def _logits(k, b, v, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((k, b, v)) * 4).astype(np.float32)
+    x[0, 0, -24:] = -1e30  # vocab-padding lanes inside the width
+    x[-1, min(1, b - 1), [3, v - 5]] = 40.0  # tie across the row
+    x[0, b - 1, [7, 9]] = 40.0  # tie inside one tile
+    return x
+
+
+def _assert_decision(h, flag, tok, hr, fr, tr, thr):
+    h, hr = np.asarray(h, np.float32), np.asarray(hr, np.float32)
+    np.testing.assert_allclose(h, hr, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(tok), np.asarray(tr))
+    thr = np.broadcast_to(np.asarray(thr, np.float32).reshape(-1, 1), hr.shape) \
+        if hr.ndim == 2 else np.float32(thr)
+    clear = np.abs(hr - thr) >= 1e-5
+    np.testing.assert_array_equal(np.asarray(flag)[clear], np.asarray(fr)[clear])
+
+
+class TestEntropyExitHeads:
+    @pytest.mark.parametrize("k,b,v", [(2, 8, 1000), (3, 4, 2048), (1, 5, 5003)])
+    @pytest.mark.parametrize("per_head", [False, True])
+    def test_plain_matches_reference(self, k, b, v, per_head):
+        x = _logits(k, b, v, seed=k * v + b)
+        jx, tx = _bf16(x)
+        h0 = np.asarray(jref.entropy_exit_argmax_heads_ref(jx, 0.5)[0])
+        thr = np.median(h0, axis=1) if per_head else float(np.median(h0))
+        jth = jnp.asarray(thr, jnp.float32)
+        tth = torch.as_tensor(thr, dtype=torch.float32)
+        out = tref.entropy_exit_argmax_heads_ref(tx, tth)
+        ref = jref.entropy_exit_argmax_heads_ref(jx, jth)
+        _assert_decision(*[o.numpy() for o in out], *ref, thr)
+        pallas = entropy_exit_argmax_heads_pallas(jx, jth, interpret=True)
+        _assert_decision(*[o.numpy() for o in out], *pallas, thr)
+
+    def test_ties_resolve_to_first_index(self):
+        x = np.zeros((2, 3, 4096), np.float32)
+        x[:, :, 100] = x[:, :, 3000] = 5.0
+        x[1, 2, 7] = x[1, 2, 9] = 9.0
+        _, _, tok = tref.entropy_exit_argmax_heads_ref(torch.from_numpy(x), 0.5)
+        np.testing.assert_array_equal(tok.numpy(), [[100] * 3, [100, 100, 7]])
+
+    def test_wrapper_runs_plain_version_on_cpu(self):
+        x = torch.from_numpy(_logits(2, 4, 640, seed=1)).bfloat16()
+        ops.reset_launches()
+        got = ops.entropy_exit_argmax_heads(x, 0.7)
+        want = tref.entropy_exit_argmax_heads_ref(x, 0.7)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert ops.launches["entropy_exit_argmax_heads"] == 0
+
+
+class TestEntropyExitSingleHead:
+    @pytest.mark.parametrize("b,v", [(1, 128), (8, 2048), (3, 5003)])
+    def test_plain_matches_reference(self, b, v):
+        x = _logits(1, b, v, seed=b + v)[0]
+        jx, tx = _bf16(x)
+        thr = float(np.median(np.asarray(jref.entropy_exit_ref(jx, 0.5)[0])))
+        out = [o.numpy() for o in tref.entropy_exit_argmax_ref(tx, thr)]
+        _assert_decision(*out, *jref.entropy_exit_argmax_ref(jx, thr), thr)
+        _assert_decision(*out, *entropy_exit_argmax_pallas(jx, thr, interpret=True), thr)
+
+    def test_single_head_is_heads_slice(self):
+        x = torch.from_numpy(_logits(3, 4, 999, seed=5)).bfloat16()
+        th = torch.tensor([0.9, 0.95, 0.99])
+        heads = ops.entropy_exit_argmax_heads(x, th)
+        for k in range(3):
+            one = ops.entropy_exit_argmax(x[k], float(th[k]))
+            for a, b in zip(one, heads):
+                assert torch.equal(a, b[k])
+
+
+def _attn_case(b, bc, c, kh, g, d, seed, *, sentinel=False, shared_qpos=False):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kh * g, d)).astype(np.float32)
+    k = rng.standard_normal((bc, c, kh, d)).astype(np.float32)
+    v = rng.standard_normal((bc, c, kh, d)).astype(np.float32)
+    k_pos = np.tile(np.arange(c, dtype=np.int32), (bc, 1))
+    k_pos[rng.random((bc, c)) < 0.15] = -1  # holes
+    q_pos = (np.int32(c - 3) if shared_qpos
+             else rng.integers(c // 2, c, b).astype(np.int32))
+    rows = rng.permutation(bc)[:b].astype(np.int32)
+    if sentinel:
+        rows[-1] = bc  # the compacted runtime's out-of-bounds sentinel
+    return q, k, v, k_pos, q_pos, rows
+
+
+ATTN_CASES = [
+    # b, bc, c, kh, g, d, window, shared q_pos
+    (4, 4, 64, 2, 1, 64, 0, False),
+    (3, 6, 96, 4, 1, 96, 0, False),  # compacted rows, D = 96
+    (2, 5, 128, 2, 2, 64, 0, False),  # G = 2
+    (4, 4, 200, 2, 2, 32, 50, False),  # G = 2 with a sliding window
+    (4, 8, 64, 4, 1, 64, 0, True),  # shared scalar q_pos
+]
+
+
+class TestFlashDecode:
+    @pytest.mark.parametrize("b,bc,c,kh,g,d,window,shared", ATTN_CASES)
+    def test_plain_matches_reference_fp32(self, b, bc, c, kh, g, d, window, shared):
+        q, k, v, kp, qp, rows = _attn_case(b, bc, c, kh, g, d, c + d,
+                                           shared_qpos=shared)
+        want = jref.flash_decode_ref(*map(jnp.asarray, (q, k, v, kp, qp, rows)),
+                                     window=window)
+        got = tref.flash_decode_ref(*map(torch.from_numpy, (q, k, v, kp)),
+                                    torch.as_tensor(qp), torch.from_numpy(rows),
+                                    window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("b,bc,c,kh,g,d,window,shared", ATTN_CASES)
+    def test_plain_matches_pallas_bf16(self, b, bc, c, kh, g, d, window, shared):
+        q, k, v, kp, qp, rows = _attn_case(b, bc, c, kh, g, d, c * d,
+                                           shared_qpos=shared)
+        (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+        want = np.asarray(flash_decode_pallas(
+            jq, jk, jv, jnp.asarray(kp), jnp.asarray(qp), jnp.asarray(rows),
+            window=window, block_c=32, interpret=True).astype(jnp.float32))
+        got = ops.flash_decode(tq, tk, tv, torch.from_numpy(kp), torch.as_tensor(qp),
+                               torch.from_numpy(rows), window=window).float().numpy()
+        assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-5)
+
+    def test_sentinel_row_reads_clamped_like_reference(self):
+        """A row index past the cache reads the last row, as the reference's
+        jnp gather clamps; torch's ``cache[rows]`` alone would raise."""
+        q, k, v, kp, qp, rows = _attn_case(4, 6, 48, 2, 1, 32, 11, sentinel=True)
+        assert rows[-1] == 6
+        want = jref.flash_decode_ref(*map(jnp.asarray, (q, k, v, kp, qp, rows)))
+        got = tref.flash_decode_ref(*map(torch.from_numpy, (q, k, v, kp, qp, rows)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+    def test_fully_masked_row_averages_uniformly(self):
+        q, k, v, kp, qp, rows = _attn_case(2, 2, 16, 1, 1, 8, 3)
+        kp[:] = -1
+        got = tref.flash_decode_ref(*map(torch.from_numpy, (q, k, v, kp, qp, rows)))
+        want = v[rows].mean(axis=1)  # (B, Kh=1, D)
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+class TestDispatch:
+    def test_use_kernels_true_on_cpu_raises(self):
+        with pytest.raises(RuntimeError, match="sm_90"):
+            ops.resolve_use_kernels(True, "cpu")
+
+    def test_auto_resolves_to_plain_on_cpu(self):
+        assert ops.resolve_use_kernels(None, "cpu") is False
+        assert ops.resolve_use_kernels(False, "cpu") is False
+
+    @pytest.mark.parametrize("capability,flag,want", [
+        ((9, 0), None, True),
+        ((9, 0), True, True),
+        ((9, 0), False, False),
+        ((8, 0), None, RuntimeError),
+        ((8, 0), True, RuntimeError),
+        ((8, 0), False, False),
+    ])
+    def test_cuda_resolution(self, monkeypatch, capability, flag, want):
+        """On a CUDA device None means the kernels; a card that is not
+        sm_90 raises unless the caller asks for the plain versions."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "get_device_capability",
+                            lambda device=None: capability)
+        if want is RuntimeError:
+            with pytest.raises(RuntimeError, match="sm_90"):
+                ops.resolve_use_kernels(flag, "cuda:0")
+        else:
+            assert ops.resolve_use_kernels(flag, "cuda:0") is want
+
+    def test_no_device_without_cuda_raises(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ops.resolve_device(None)
+        with pytest.raises(RuntimeError):
+            ops.resolve_device("cuda")
+        assert ops.resolve_device("cpu") == torch.device("cpu")
+
+    def test_kernel_sources_present_and_unbuilt_at_import(self):
+        for name in build.KERNEL_SOURCES:
+            src = build.source_path(name)
+            assert src.is_file()
+            assert 'extern "C"' in src.read_text()
+        assert build._loaded == {}
