@@ -1,42 +1,60 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--log PATH]
 
 Drives the port (``src/repro_torch``) on the card and fails (non-zero
 exit) if any phase fails:
 
   1. device — the card's name and ``nvidia-smi`` power limit; TF32 off;
   2. build — compiles every CUDA kernel of the port from ``src`` with
-     ``nvcc`` (sm_90a), all sources at once, into ``build/kernels``;
+     ``nvcc`` (sm_90a), one process per source, all at once, into
+     ``build/kernels``;
   3. kernels — each Hopper kernel against its plain PyTorch version at the
-     main path's shapes, with the tolerance stated beside each check, and
-     its time (CUDA events, median of 30), the plain version's time, the
-     time of one PyTorch library call computing the same function where one
-     exists, and its bound (the larger of bytes / 3.35 TB/s and operations
-     / the fp32 peak of 67 TFLOP/s, counted on these inputs);
-  4. end to end — full-width, full-depth Phi-3-mini (random weights from a
-     seeded ``torch.Generator``) behind ``PartitionedServer(split_layer=24)``:
-     the first decode step on the kernel path against the plain path (main-
-     head logits within 8 bf16 ulps; at the median threshold, exit masks
-     equal away from the threshold), one
-     step's dispatch under ``torch.cuda.set_sync_debug_mode("error")``,
-     then 8 requests of 128-token prompts and 16 new tokens through
-     ``submit`` / ``run`` at two exit thresholds (never-exit 0.5, and the
-     median branch-8 entropy, where rows exit on the edge and the cloud
-     runs compacted buckets), and a short run with ``heads_batched=False``
-     for the single-head exit kernel.  Kernel launch counts are reset just
-     before each run and read just after it.
+     main paths' shapes, with the tolerance stated beside each check, and
+     its time (``torch.profiler`` device time, mean of 30 calls), the plain
+     version's time, the time of one PyTorch library call computing the
+     same function where one exists, and its bound (the larger of bytes /
+     3.35 TB/s and operations / the fp32 peak of 67 TFLOP/s, counted on
+     these inputs);
+  4. end to end — three paths, each a ``PartitionedServer`` at full
+     published width and depth with random weights from a seeded
+     ``torch.Generator``, 8 slots x 4096 context:
+       * Phi-3-mini 3.8B (dense GQA), split 24, edge branches 8 and 16;
+       * Zamba2-1.2B (Mamba2 trunk + shared attention block after every 6th
+         layer), split 24, edge branches 9 and 19, sites 6..24 on the edge
+         and 30, 36 in the cloud;
+       * Mamba2-130M (attention-free, tied embeddings, 152 vocabulary pad
+         lanes), split 18, edge branches 6 and 12.
+     For each: the admission's last-position logits and the first decode
+     step on the kernel path against the plain path (logits within 8 bf16
+     ulps at their scale, pad lanes left out; a row whose first decode input
+     flipped at an admission near-tie is listed, not compared; at the median
+     threshold, exit masks equal away from the threshold), one
+     compacted step's dispatch under ``torch.cuda.set_sync_debug_mode(
+     "error")``, then 8 requests of 128-token prompts through ``submit`` /
+     ``run`` at two exit thresholds (never-exit 0.5, and the median
+     first-branch entropy, where rows exit on the edge and the cloud runs
+     compacted buckets), asserting that every kernel of the path launched;
+     Phi-3-mini adds a short run with ``heads_batched=False`` for the
+     single-head exit kernel.  Kernel launch counts are reset just before
+     each run and read just after it.
 
-The line before the last is the JSON ``kernels`` record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository's ``src`` beside it, the script exits non-zero and prints no
-result.
+``--log PATH`` also writes every printed line to PATH, whole, for runs
+whose output is cut to its end.  The line before the last is the JSON
+``kernels`` record (``launches``: the
+sum over the end-to-end runs; ``launches_by_path`` splits it); the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the repository's ``src`` beside it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gc
+import itertools
 import json
 import math
 import statistics
@@ -47,17 +65,54 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+_log_file = None
 
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 SEED = 0
 N_REQ, PROMPT, NEW_TOKENS = 8, 128, 16
-SPLIT, SLOTS, CONTEXT = 24, 8, 4096
+SLOTS, CONTEXT = 8, 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class E2EPath:
+    """One end-to-end path: the configuration, its cut, the new tokens per
+    request, the branch whose median entropy sets the mixed threshold, and
+    the kernels it must launch."""
+
+    arch: str
+    split: int
+    new_tokens: int
+    branch: int
+    kernels: tuple[str, ...]
+    single_head: bool = False
+
+
+PATHS = (
+    E2EPath("phi3_mini_3_8b", 24, NEW_TOKENS, 8,
+            ("flash_decode", "entropy_exit_argmax_heads"), single_head=True),
+    E2EPath("zamba2_1_2b", 24, NEW_TOKENS, 9,
+            ("ssd_update", "ssd_scan", "flash_decode", "entropy_exit_argmax_heads")),
+    E2EPath("mamba2_130m", 18, 4, 6,
+            ("ssd_update", "ssd_scan", "entropy_exit_argmax_heads")),
+)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
+
+
+def rotating(fn, sets):
+    """A call taking the next of ``sets`` each time.  The sets together
+    exceed the 50 MB L2, so each timed call finds its operands cold, as the
+    decode step does (it touches the whole model between two launches of
+    one layer's kernel)."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -110,10 +165,36 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or fp32 operations over the fp32 peak, whichever is larger."""
+    tb, tf = nbytes / HBM_BPS, flops / FP32_FLOPS
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def kernel_row(name, source, replaces, err, call, match, plain, nbytes, flops,
+               library_ms=None, **extra) -> dict:
+    """Time the kernel and its plain version and make its JSON row."""
+    ms, src = device_ms(call, match)
+    wall = time_ms(call)
+    plain_ms, _ = device_ms(plain)
+    bound_ms, by = bound(nbytes, flops)
+    log(f"  {name}: kernel {ms:.4f} ms on the device ({src}; {wall:.4f} ms "
+        f"between CUDA events with launch overhead), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({by})")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
+                ms_source=src, wall_ms=wall, **extra)
+
+
 # ---------------------------------------------------------------- phase 3
 def exit_kernel_phase(torch, dev, gen) -> list[dict]:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.entropy_exit import entropy_exit_argmax_heads_cuda
+    from repro_torch.kernels.entropy_exit import (
+        entropy_exit_argmax_heads_cuda,
+        entropy_exit_cuda,
+    )
 
     k, b, v = 2, 8, 32064
     logits = (torch.randn((k, b, v), generator=gen, device=dev) * 4).to(torch.bfloat16)
@@ -142,25 +223,41 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
         check(bool(torch.equal(flag[clear], flr[clear])),
               f"{name} flags exact where |H - thr| >= 1e-5 "
               f"({int((~clear).sum())} rows at the edge)")
-        call = lambda: entropy_exit_argmax_heads_cuda(lg, th)  # noqa: E731
-        ms, src = device_ms(call, "entropy_exit_argmax_kernel")
-        wall = time_ms(call)
-        plain, _ = device_ms(lambda: ref.entropy_exit_argmax_heads_ref(lg, th))
         n = lg.numel()
-        nbytes = n * 2 + lg.shape[0] * 4 + lg.shape[0] * b * (4 + 1 + 4)
-        flops = 5 * n  # max, sub, exp, add, fma per element
-        bound = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/entropy_exit.cu",
-            replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-            plain_ms=plain, bound_ms=bound,
-            bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS else "operations",
-            library_ms=None, ms_source=src, wall_ms=wall,
-        ))
-        log(f"  {name}: kernel {ms:.4f} ms on the device ({src}; {wall:.4f} ms "
-            f"between CUDA events with launch overhead), plain {plain:.4f} ms, "
-            f"bound {bound:.5f} ms")
+        rows.append(kernel_row(
+            name, "src/repro_torch/kernels/csrc/entropy_exit.cu", replaces, err,
+            lambda lg=lg, th=th: entropy_exit_argmax_heads_cuda(lg, th),
+            "entropy_exit_argmax_kernel",
+            lambda lg=lg, th=th: ref.entropy_exit_argmax_heads_ref(lg, th),
+            nbytes=n * 2 + lg.shape[0] * 4 + lg.shape[0] * b * (4 + 1 + 4),
+            flops=5 * n))  # max, sub, exp, add, fma per element
+
+    # The no-argmax form: Zamba2's width, and Mamba2-130M's padded width
+    # whose 152 pad lanes (-1e30) still count in the log-width normalizer.
+    worst = 0.0
+    for v2, pad in ((32000, 0), (50432, 152)):
+        lg = (torch.randn((b, v2), generator=gen, device=dev) * 4).to(torch.bfloat16)
+        if pad:
+            lg[:, -pad:] = -1e30
+        hr, _ = ref.entropy_exit_ref(lg, 0.5)
+        th = float(hr.median())
+        h, flag = entropy_exit_cuda(lg, th)
+        hr, flr = ref.entropy_exit_ref(lg, th)
+        torch.cuda.synchronize()
+        err = float((h - hr).abs().max())
+        worst = max(worst, err)
+        clear = (hr - th).abs() >= 1e-5
+        log(f"entropy_exit: B={b} V={v2} bf16, {pad} pad lanes")
+        check(err <= 1e-5, f"entropy_exit V={v2} |dH| = {err:.3g} <= 1e-5")
+        check(bool(torch.equal(flag[clear], flr[clear])),
+              f"entropy_exit V={v2} flags exact where |H - thr| >= 1e-5")
+    rows.append(kernel_row(
+        "entropy_exit", "src/repro_torch/kernels/csrc/entropy_exit.cu",
+        "src/repro/kernels/entropy_exit.py:90", worst,
+        lambda: entropy_exit_cuda(lg, th), "entropy_exit_argmax_kernel",
+        lambda: ref.entropy_exit_ref(lg, th),
+        nbytes=lg.numel() * 2 + 4 + b * (4 + 1), flops=4 * lg.numel(),
+        shape=f"B={b} V={lg.shape[1]}"))
     return rows
 
 
@@ -204,14 +301,16 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     b, bc, c, kh, d = 8, 8, 4096, 32, 96
     main = flash_case(torch, dev, gen, b, bc, c, kh, 1, d, 0)
     log(f"flash_decode: B={b} Bc={bc} C={c} Kh={kh} D={d} bf16, one sentinel row")
-    err = compare("main-path shapes", main, 0)
+    err = compare("Phi-3-mini shapes (D=96)", main, 0)
     small = flash_case(torch, dev, gen, 4, 6, 1000, 8, 2, 128, 300)
     compare("G=2, window=300, C=1000", small, 300)
+    z = flash_case(torch, dev, gen, b, bc, c, 32, 1, 64, 0)
+    err = max(err, compare("Zamba2 shared block (D=64, Kh=32, G=1)", z, 0))
+    zq, zk, zv, zkp, zqp, zrows = z
+    d64_ms, _ = device_ms(lambda: flash_decode_cuda(zq, zk, zv, zkp, zqp, zrows),
+                          "flash_decode_kernel")
+    log(f"  flash_decode at D=64: kernel {d64_ms:.4f} ms on the device")
     q, k, v, k_pos, q_pos, rows = main
-    call = lambda: flash_decode_cuda(q, k, v, k_pos, q_pos, rows)  # noqa: E731
-    ms, src = device_ms(call, "flash_decode_kernel")
-    wall = time_ms(call)
-    plain, _ = device_ms(lambda: ref.flash_decode_ref(q, k, v, k_pos, q_pos, rows))
     # Library yardstick, never called by the port: SDPA on gathered rows.
     r = rows.long().clamp(max=bc - 1)
     kg = k[r].permute(0, 2, 1, 3)  # (B, Kh, C, D)
@@ -222,24 +321,138 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     lib, _ = device_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
     valid = int(((kp >= 0) & (kp <= q_pos[:, None])).sum())
     h = q.shape[1]
-    nbytes = (2 * q.numel() * 2 + b * c * 4 + 2 * b * 4
-              + 2 * valid * kh * d * 2)
     stream_bytes = 2 * q.numel() * 2 + b * c * 4 + 2 * b * c * kh * d * 2
-    flops = 4 * valid * (h // kh) * kh * d
-    bound = max(nbytes / HBM_BPS, flops / FP32_FLOPS) * 1e3
-    log(f"  flash_decode: kernel {ms:.4f} ms on the device ({src}; {wall:.4f} ms between "
-        f"CUDA events), plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
-        f"bound {bound:.4f} ms over the {valid} valid slots "
-        f"({stream_bytes / HBM_BPS * 1e3:.4f} ms to stream all {b * c})")
-    return [dict(
-        name="flash_decode", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode.py:99", launches=0,
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-        bound_by="bytes" if nbytes / HBM_BPS >= flops / FP32_FLOPS else "operations",
-        library_ms=lib, bound_stream_all_ms=stream_bytes / HBM_BPS * 1e3,
-        ms_source=src, wall_ms=wall,
-    )]
+    log(f"  SDPA on gathered rows {lib:.4f} ms; bound over the {valid} valid "
+        f"slots ({stream_bytes / HBM_BPS * 1e3:.4f} ms to stream all {b * c})")
+    return [kernel_row(
+        "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:99", err,
+        lambda: flash_decode_cuda(q, k, v, k_pos, q_pos, rows), "flash_decode_kernel",
+        lambda: ref.flash_decode_ref(q, k, v, k_pos, q_pos, rows),
+        nbytes=2 * q.numel() * 2 + b * c * 4 + 2 * b * 4 + 2 * valid * kh * d * 2,
+        flops=4 * valid * (h // kh) * kh * d, library_ms=lib,
+        bound_stream_all_ms=stream_bytes / HBM_BPS * 1e3, d64_ms=d64_ms)]
+
+
+def ssd_inputs(torch, dev, gen, b, l, h, p, n, g):
+    """Inputs as the model hands them over: dt-scaled fp32 x (B, L, H, P),
+    fp32 log decays a = dt * A (B, L, H), and B, C (B, L, G, N) as bf16
+    slices of one wider xBC activation (a token stride, not contiguous)."""
+    inner = h * p
+    xbc = (torch.randn((b, l, inner + 2 * g * n), generator=gen, device=dev)
+           * 0.5).to(torch.bfloat16)
+    bm = xbc[..., inner:inner + g * n].reshape(b, l, g, n)
+    cm = xbc[..., inner + g * n:].reshape(b, l, g, n)
+    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.1 + 1e-3
+    a_log = torch.rand((h,), generator=gen, device=dev) * math.log(16.0)
+    x = torch.randn((b, l, h, p), generator=gen, device=dev) * dt[..., None]
+    return x, -dt * torch.exp(a_log), bm, cm
+
+
+def ssd_update_phase(torch, dev, gen) -> list[dict]:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_update_cuda
+
+    worst = 0.0
+    for label, bc, b, h, n, g, compact in (
+        ("Zamba2-1.2B, full batch", 8, 8, 64, 64, 1, False),
+        ("Zamba2-1.2B, compacted 5 of 8", 8, 5, 64, 64, 1, True),
+        ("Mamba2-130M, compacted 5 of 8", 8, 5, 24, 128, 1, True),
+        ("G=2, compacted 5 of 8", 8, 5, 64, 64, 2, True),
+    ):
+        p = 64
+        state = torch.randn((bc, h, p, n), generator=gen, device=dev)
+        x, a, bm, cm = ssd_inputs(torch, dev, gen, b, 1, h, p, n, g)
+        x, a, bm, cm = x[:, 0], a[:, 0], bm[:, 0], cm[:, 0]
+        rows = None
+        if compact:
+            rows = torch.randperm(bc, generator=gen, device=dev)[:b].to(torch.int32)
+            rows[-1] = bc  # the compacted runtime's out-of-bounds sentinel
+        got, want = state.clone(), state.clone()
+        y = ssd_update_cuda(got, x, a, bm, cm, rows)
+        yr = ref.ssd_update_ref(want, x, a, bm, cm, rows)
+        torch.cuda.synchronize()
+        named = torch.arange(b, device=dev) if rows is None else rows.long()
+        live = named < bc
+        untouched = torch.ones(bc, dtype=torch.bool, device=dev)
+        untouched[named[live]] = False
+        dy = float((y - yr)[live].abs().max())
+        dh = float((got - want).abs().max())
+        worst = max(worst, dy, dh)
+        log(f"ssd_update: {label}: Bc={bc} B={b} H={h} P={p} N={n} G={g}")
+        # fp32 on both sides; the kernel fuses multiply-adds and sums y's N
+        # products in another order: a few fp32 ulps at the values' scale.
+        check(dh <= 1e-6 * float(want.abs().max()),
+              f"ssd_update {label}: state |dh| {dh:.3g} <= 1e-6 max|h|")
+        check(dy <= 1e-5 * float(yr.abs().max()),
+              f"ssd_update {label}: |dy| {dy:.3g} <= 1e-5 max|y| on live rows")
+        check(bool(torch.equal(got[untouched], state[untouched])),
+              f"ssd_update {label}: {int(untouched.sum())} rows not named "
+              "bitwise untouched")
+    # Time at Zamba2-1.2B's decode shape: every row of the batch, eight
+    # resident states (67 MB) in turn.
+    bc = b = 8
+    h, p, n, g = 64, 64, 64, 1
+    x, a, bm, cm = (t[:, 0] for t in ssd_inputs(torch, dev, gen, b, 1, h, p, n, g))
+    sets = [(torch.randn((bc, h, p, n), generator=gen, device=dev), x, a, bm, cm)
+            for _ in range(8)]
+    return [kernel_row(
+        "ssd_update", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:166", worst,
+        rotating(ssd_update_cuda, sets), "ssd_update_kernel",
+        rotating(ref.ssd_update_ref, sets),
+        nbytes=2 * bc * h * p * n * 4 + 2 * b * h * p * 4 + b * h * 4
+        + 2 * b * g * n * 2 + b * 4,
+        flops=5 * b * h * p * n, shape=f"Bc=B={b} H={h} P={p} N={n} G={g}")]
+
+
+def ssd_scan_phase(torch, dev, gen) -> list[dict]:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models.mamba import ssd_chunked
+
+    worst = 0.0
+    for label, b, l, h, n, g in (
+        ("Zamba2-1.2B admission", 8, 128, 64, 64, 1),
+        ("ragged L=100", 8, 100, 64, 64, 1),
+        ("Mamba2-130M", 8, 128, 24, 128, 1),
+        ("G=2", 4, 128, 64, 64, 2),
+    ):
+        p, chunk = 64, 64
+        x, a, bm, cm = ssd_inputs(torch, dev, gen, b, l, h, p, n, g)
+        y, hf = ssd_scan_cuda(x, a, bm, cm, chunk=chunk)
+        yr, hr = ref.ssd_scan_ref(x, a, bm, cm)
+        yc, hc = ssd_chunked(x, a, bm, cm, chunk)
+        torch.cuda.synchronize()
+        log(f"ssd_scan: {label}: B={b} L={l} H={h} P={p} N={n} G={g} chunk={chunk}")
+        ys, hs = float(yr.abs().max()), float(hr.abs().max())
+        dy, dh = float((y - yr).abs().max()), float((hf - hr).abs().max())
+        worst = max(worst, dy, dh)
+        # The same sequential recurrence in fp32: rounding (fused
+        # multiply-adds, y's sum order) stays within 1e-5 of the scale.
+        check(dy <= 1e-5 * ys and dh <= 1e-5 * hs,
+              f"ssd_scan {label} vs ssd_scan_ref: |dy| {dy:.3g}, |dh| {dh:.3g} "
+              "<= 1e-5 of max|y|, max|h|")
+        # The chunked form sums exp(cumsum) decays in (chunk x chunk) blocks.
+        dyc, dhc = float((y - yc).abs().max()), float((hf - hc).abs().max())
+        check(dyc <= 1e-4 * ys and dhc <= 1e-4 * hs,
+              f"ssd_scan {label} vs ssd_chunked: |dy| {dyc:.3g}, |dh| {dhc:.3g} "
+              "<= 1e-4 of max|y|, max|h|")
+    # Time at Zamba2-1.2B's admission shape, four input sets (90 MB) in turn.
+    b, l, h, p, n, g, chunk = 8, 128, 64, 64, 64, 1, 64
+    sets = [ssd_inputs(torch, dev, gen, b, l, h, p, n, g) for _ in range(4)]
+    chunked_ms, _ = device_ms(rotating(
+        lambda *t: ssd_chunked(*t, chunk), sets))
+    log(f"  ssd_chunked (the model's plain prefill scan) {chunked_ms:.4f} ms")
+    return [kernel_row(
+        "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:98", worst,
+        rotating(lambda *t: ssd_scan_cuda(*t, chunk=chunk), sets), "ssd_scan_kernel",
+        rotating(ref.ssd_scan_ref, sets),
+        nbytes=2 * b * l * h * p * 4 + b * l * h * 4 + 2 * b * l * g * n * 2
+        + b * h * p * n * 4,
+        flops=5 * b * l * h * p * n, chunked_ms=chunked_ms,
+        shape=f"B={b} L={l} H={h} P={p} N={n} G={g} chunk={chunk}")]
 
 
 # ---------------------------------------------------------------- phase 4
@@ -260,9 +473,11 @@ def first_step(torch, srv, sync_check: bool = False):
     sched = RequestScheduler(srv, SLOTS, CONTEXT)
     for p in prompts(srv.cfg):
         sched.submit(p, NEW_TOKENS)
+    sched._admit()  # the step below then only decodes
+    tok0 = sched.tok_dev[:, 0].cpu().numpy()
     rep = sched.step()
     res = rep.server_report.tier_result
-    out = dict(tokens=res.tokens.copy(), exited=res.exited.copy(),
+    out = dict(tok0=tok0, tokens=res.tokens.copy(), exited=res.exited.copy(),
                ents={l: e.copy() for l, e in res.branch_entropy.items()},
                takes={l: t.copy() for l, t in res.branch_take.items()},
                logits=res.last_logits.float().clone())
@@ -323,9 +538,9 @@ def serve(torch, srv, n_tokens: int, label: str) -> dict:
                       for c in rep.server_report.compaction})
     decode_ms = statistics.median(s * 1e3 for s in step_s[1:])
     ttft = statistics.median(r.ttft_s for r in results)
-    out = dict(label=label, launches=launches, exits=int(exits),
-               tokens=N_REQ * n_tokens, wall_s=wall, ttft_s=ttft,
-               decode_step_ms=decode_ms,
+    out = dict(label=label, launches=launches, decode_steps=sched.decode_steps,
+               exits=int(exits), tokens=N_REQ * n_tokens, wall_s=wall,
+               ttft_s=ttft, decode_step_ms=decode_ms,
                tokens_per_s=N_REQ * n_tokens / wall, cloud_buckets=buckets,
                overflow_retries=retries)
     log(f"  {label}: {json.dumps(out)}")
@@ -361,138 +576,194 @@ def profile_decode(torch, srv, steps: int = 3) -> dict:
     return out
 
 
-def e2e_phase(torch, dev) -> dict:
+def e2e_phase(torch, dev, path: E2EPath) -> dict:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import (
+        hybrid_sites,
+        init_caches,
+        init_params,
+        prefill,
+    )
     from repro_torch.serving import PartitionedServer
 
-    cfg0 = get_config("phi3_mini_3_8b")
-    log(f"end to end: {cfg0.name} full width and depth ({cfg0.num_layers} layers, "
-        f"d_model {cfg0.d_model}, branches {cfg0.branch_layers}), split {SPLIT}, "
+    cfg0 = get_config(path.arch)
+    split, name = path.split, cfg0.name
+    log(f"end to end: {name} full width and depth ({cfg0.num_layers} layers, "
+        f"d_model {cfg0.d_model}, vocab {cfg0.vocab_size} padded to "
+        f"{cfg0.padded_vocab_size}, branches {cfg0.branch_layers}, shared-"
+        f"attention sites {hybrid_sites(cfg0)}), split {split}, "
         f"{SLOTS} slots x {CONTEXT}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = init_params(cfg0, gen, dev)
     cfg_a = dataclasses.replace(cfg0, exit_threshold=0.5)
-    srv = PartitionedServer(cfg_a, params, SPLIT, device=dev, slots=SLOTS,
-                            context_len=CONTEXT)
-    wparams = srv.params  # bf16 compute copies; every later server shares them
+
+    def server(cfg, weights, **kw):
+        return PartitionedServer(cfg, weights, split, device=dev, slots=SLOTS,
+                                 context_len=CONTEXT, **kw)
+
+    srv = server(cfg_a, params)
+    wparams = srv.params  # compute copies; every later server shares them
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"  params ready in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     check(srv.executor.use_kernels, "the server resolved use_kernels=None to the kernels")
+    check(srv.executor.segments[0].branches == cfg0.branch_layers[:2],
+          f"{name}: the edge keeps branches {cfg0.branch_layers[:2]} (K=2)")
+
+    vocab = cfg0.vocab_size  # pad lanes (-1e30 on both paths) left out
+
+    def logit_bound(plain_logits):
+        """8 bf16 ulps at the logits' own scale: the two paths differ only
+        in the kernels, each within a few fp32 ulps or one bf16 ulp of its
+        plain version; a wrong kernel in any layer moves logits by O(scale)."""
+        scale = float(plain_logits.abs().max())
+        return 8 * 2.0 ** (math.floor(math.log2(scale)) - 7), scale
+
+    def near_tie(plain_logits, d):
+        """Rows whose top-2 gap is at most 2 d: with every logit within d of
+        the other path's, only these can change their argmax."""
+        top2 = plain_logits.topk(2, dim=-1).values
+        return (top2[:, 0] - top2[:, 1]).cpu().numpy() <= 2 * d
+
+    # Admission: the prompts' last-position logits, kernel path (the
+    # ssd_scan kernel in every Mamba2 layer) against plain path.  Their
+    # argmax is each row's first decode input, so a flip at a near-tie
+    # gives that row a different input on the two paths.
+    toks = torch.as_tensor(np.stack(prompts(cfg0)), device=dev).long()
+    pre = {}
+    for kernels in (True, False):
+        caches = init_caches(cfg_a, SLOTS, PROMPT + 1, device=dev)
+        lg, _ = prefill(wparams, toks, cfg_a, caches, rows=np.arange(SLOTS),
+                        use_kernels=kernels)
+        pre[kernels] = lg[:, 0, :vocab].float()
+        del caches
+    pre_tol, pre_scale = logit_bound(pre[False])
+    dpre = float((pre[True] - pre[False]).abs().max())
+    check(dpre <= pre_tol,
+          f"{name} admission: max |d logit| kernel vs plain {dpre:.4g} <= "
+          f"{pre_tol:.4g} (8 bf16 ulps at the logits' scale {pre_scale:.3f})")
+    pre_tie = near_tie(pre[False], dpre)
 
     # First decode step: kernel path vs plain path on the same card.
     kern = first_step(torch, srv, sync_check=True)
-    plain_srv = PartitionedServer(cfg_a, wparams, SPLIT, device=dev,
-                                  use_kernels=False, slots=SLOTS,
-                                  context_len=CONTEXT)
+    plain_srv = server(cfg_a, wparams, use_kernels=False)
     plain = first_step(torch, plain_srv)
     del plain_srv
-    # The two paths share the prefill and differ only in the decode step's
-    # kernels, each within about one bf16 ulp of its plain version, so the
-    # main-head logits may differ by a few bf16 ulps at their own scale; a
-    # wrong kernel anywhere in the 32 layers moves them by O(their scale).
-    scale = float(plain["logits"].abs().max())
-    dlog_tol = 8 * 2.0 ** (math.floor(math.log2(scale)) - 7)
-    dlog = float((kern["logits"] - plain["logits"]).abs().max())
+    same_in = kern["tok0"] == plain["tok0"]
+    check(bool((same_in | pre_tie).all()),
+          f"{name} first decode inputs equal on every row not at an admission "
+          f"near-tie (differ on {(~same_in).nonzero()[0].tolist()}, near-ties "
+          f"{pre_tie.nonzero()[0].tolist()}); only equal-input rows are compared")
+    rows_in = torch.as_tensor(same_in, device=dev)
+    dlog_tol, scale = logit_bound(plain["logits"][rows_in, :vocab])
+    dlog = float((kern["logits"] - plain["logits"])[rows_in, :vocab].abs().max())
     check(dlog <= dlog_tol,
-          f"first step: max |d logit| kernel vs plain {dlog:.4g} <= {dlog_tol:.4g} "
-          f"(8 bf16 ulps at the logits' scale, max |logit| {scale:.3f})")
-    top2 = plain["logits"].topk(2, dim=-1).values
-    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-    # With every logit within dlog of the other path's, only a row whose
-    # top-2 gap is at most 2 x dlog can change its argmax.
-    edge = gap <= 2 * dlog
+          f"{name} first step: max |d logit| kernel vs plain {dlog:.4g} <= "
+          f"{dlog_tol:.4g} (8 bf16 ulps at the logits' scale, max |logit| {scale:.3f})")
+    edge = near_tie(plain["logits"][:, :vocab], dlog)
     same = kern["tokens"] == plain["tokens"]
     log(f"  rows at a near-tie (top-2 gap <= 2 x {dlog:.4g}), where the "
         f"paths may pick either token: {edge.nonzero()[0].tolist()}")
-    check(bool((same | edge).all()),
-          "first-step tokens equal on every row not at a near-tie "
-          f"(differ on {(~same).nonzero()[0].tolist()})")
-    thr = float(statistics.median(plain["ents"][8].tolist()))
+    check(bool((same | edge | ~same_in).all()),
+          f"{name} first-step tokens equal on every equal-input row not at a "
+          f"near-tie (differ on {(~same).nonzero()[0].tolist()})")
+    thr = float(statistics.median(plain["ents"][path.branch].tolist()))
     for layer in plain["ents"]:
-        de = abs(kern["ents"][layer] - plain["ents"][layer])
+        de = abs(kern["ents"][layer] - plain["ents"][layer])[same_in]
         check(float(de.max()) < 1e-4,
-              f"branch {layer}: |dH| kernel vs plain {float(de.max()):.3g} < 1e-4")
+              f"{name} branch {layer}: |dH| kernel vs plain {float(de.max()):.3g} < 1e-4")
 
-    run_a = serve(torch, srv, NEW_TOKENS, "threshold 0.5")
-    check(run_a["launches"]["flash_decode"] > 0
-          and run_a["launches"]["entropy_exit_argmax_heads"] > 0,
-          f"threshold 0.5: both kernels launched {run_a['launches']}")
+    def launched(run, label):
+        check(all(run["launches"][k] > 0 for k in path.kernels),
+              f"{name} {label}: every kernel of the path launched "
+              f"{ {k: run['launches'][k] for k in path.kernels} }")
+
+    run_a = serve(torch, srv, path.new_tokens, f"{name} threshold 0.5")
+    launched(run_a, "threshold 0.5")
     prof_a = profile_decode(torch, srv)
     del srv
     torch.cuda.empty_cache()
 
     cfg_b = dataclasses.replace(cfg0, exit_threshold=thr)
-    srv = PartitionedServer(cfg_b, wparams, SPLIT, device=dev, slots=SLOTS,
-                            context_len=CONTEXT)
+    srv = server(cfg_b, wparams)
     # First step at the median threshold: the exit kernel's own flags pick
     # the rows that exit on the edge, against the plain path's.
     kern_b = first_step(torch, srv)
-    plain_srv = PartitionedServer(cfg_b, wparams, SPLIT, device=dev,
-                                  use_kernels=False, slots=SLOTS,
-                                  context_len=CONTEXT)
+    plain_srv = server(cfg_b, wparams, use_kernels=False)
     plain_b = first_step(torch, plain_srv)
     del plain_srv
-    # A row within 1e-4 of the threshold (several times the paths' |dH|) at
-    # a branch may exit on either path; such rows are listed, not compared.
-    near = np.zeros(SLOTS, bool)
-    for e in plain_b["ents"].values():
-        near |= np.abs(e - thr) < 1e-4
+    # A row whose two entropies (each path's own, within 1e-4 of each
+    # other) fall on two sides of the threshold at some branch may exit on
+    # either path, as may a row whose first decode input differs; such rows
+    # are listed, not compared.
+    near = kern_b["tok0"] != plain_b["tok0"]
+    for layer, e in plain_b["ents"].items():
+        near |= (e < thr) != (kern_b["ents"][layer] < thr)
     far = ~near
+    for layer, e in plain_b["ents"].items():
+        computed = far & (e != 0) & (kern_b["ents"][layer] != 0)
+        de = float(np.abs(kern_b["ents"][layer] - e)[computed].max(initial=0.0))
+        check(de < 1e-4, f"{name} median threshold, first step: branch {layer} "
+              f"|dH| kernel vs plain {de:.3g} < 1e-4")
     masks_equal = bool((kern_b["exited"] == plain_b["exited"])[far].all()) and all(
         bool((kern_b["takes"][l] == plain_b["takes"][l])[far].all())
         for l in plain_b["takes"])
     check(bool(plain_b["exited"].any()),
-          f"median threshold, first step: rows exit on the edge "
+          f"{name} median threshold, first step: rows exit on the edge "
           f"({plain_b['exited'].astype(int).tolist()})")
     check(masks_equal,
-          f"median threshold, first step: exit masks and per-branch takes "
-          f"kernel vs plain equal away from |H - thr| < 1e-4 "
-          f"(rows at the edge: {near.nonzero()[0].tolist()})")
+          f"{name} median threshold, first step: exit masks and per-branch takes "
+          f"kernel vs plain equal on rows whose entropies do not straddle the "
+          f"threshold (rows at the edge: {near.nonzero()[0].tolist()})")
     stay = far & ~plain_b["exited"]
-    top2 = plain_b["logits"].topk(2, dim=-1).values
-    row_dlog = (kern_b["logits"] - plain_b["logits"]).abs().amax(dim=-1).cpu().numpy()
+    row_dlog = (kern_b["logits"] - plain_b["logits"])[:, :vocab].abs().amax(
+        dim=-1).cpu().numpy()
     dlog_b = float(row_dlog[stay].max()) if stay.any() else 0.0
-    check(dlog_b <= dlog_tol, "median threshold, first step: max |d logit| on "
-          f"rows that stay {dlog_b:.4g} <= {dlog_tol:.4g}")
-    edge_b = (top2[:, 0] - top2[:, 1]).cpu().numpy() <= 2 * dlog_b
+    check(dlog_b <= dlog_tol, f"{name} median threshold, first step: max |d logit| "
+          f"on rows that stay {dlog_b:.4g} <= {dlog_tol:.4g}")
+    edge_b = near_tie(plain_b["logits"][:, :vocab], dlog_b)
     same_b = kern_b["tokens"] == plain_b["tokens"]
     check(bool((same_b | edge_b | ~stay).all()),
-          "median threshold, first step: main-head tokens equal on rows that "
-          f"stay, away from near-ties (near-tie rows: "
+          f"{name} median threshold, first step: main-head tokens equal on rows "
+          f"that stay, away from near-ties (near-tie rows: "
           f"{(edge_b & stay).nonzero()[0].tolist()})")
-    log(f"  exit tokens (branch argmax) equal on {int((same_b & ~stay).sum())} of "
-        f"{int((~stay).sum())} exited or edge rows; not asserted: the branch "
-        "logits' top-2 gaps are not fetched")
-    run_b = serve(torch, srv, NEW_TOKENS, f"threshold {thr:.6f}")
+    run_b = serve(torch, srv, path.new_tokens, f"{name} threshold {thr:.6f}")
     check(run_b["exits"] > 0 and min(run_b["cloud_buckets"]) < SLOTS,
-          "median threshold: rows exit on the edge and the cloud runs "
+          f"{name} median threshold: rows exit on the edge and the cloud runs "
           f"compacted buckets {run_b['cloud_buckets']}")
-    check(run_b["launches"]["flash_decode"] > 0
-          and run_b["launches"]["entropy_exit_argmax_heads"] > 0,
-          f"median threshold: both kernels launched {run_b['launches']}")
+    launched(run_b, "median threshold")
     del srv
     torch.cuda.empty_cache()
+    runs = [run_a, run_b]
 
-    srv = PartitionedServer(cfg_b, wparams, SPLIT, device=dev, slots=SLOTS,
-                            context_len=CONTEXT, heads_batched=False)
-    run_c = serve(torch, srv, 4, "single-head exits")
-    check(run_c["launches"]["entropy_exit_argmax"] > 0
-          and run_c["launches"]["entropy_exit_argmax_heads"] == 0,
-          f"heads_batched=False: the single-head kernel launched {run_c['launches']}")
-    del srv
+    if path.single_head:
+        srv = server(cfg_b, wparams, heads_batched=False)
+        run_c = serve(torch, srv, 4, f"{name} single-head exits")
+        check(run_c["launches"]["entropy_exit_argmax"] > 0
+              and run_c["launches"]["entropy_exit_argmax_heads"] == 0,
+              f"heads_batched=False: the single-head kernel launched {run_c['launches']}")
+        runs.append(run_c)
+        del srv
+    del wparams
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(a=run_a, b=run_b, c=run_c, profile=prof_a,
-                first_step_max_dlogit=dlog)
+    return dict(arch=path.arch, runs=runs, profile=prof_a, threshold=thr,
+                admission_max_dlogit=dpre, admission_dlogit_bound=pre_tol,
+                first_step_max_dlogit=dlog, first_step_dlogit_bound=dlog_tol,
+                first_step_rows_compared=int(same_in.sum()))
 
 
 def main() -> int:
+    global _log_file
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--log", type=Path, default=None,
+                        help="also write every printed line to this file")
+    args = parser.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
         return 2
@@ -504,6 +775,9 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
 
+    if args.log is not None:
+        args.log.parent.mkdir(parents=True, exist_ok=True)
+        _log_file = args.log.open("w")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -527,16 +801,26 @@ def main() -> int:
                 log(f"  ptxas {src}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = exit_kernel_phase(torch, dev, gen) + flash_kernel_phase(torch, dev, gen)
-    e2e = e2e_phase(torch, dev)
+    kernels = (exit_kernel_phase(torch, dev, gen) + flash_kernel_phase(torch, dev, gen)
+               + ssd_update_phase(torch, dev, gen) + ssd_scan_phase(torch, dev, gen))
+    torch.cuda.empty_cache()
+    e2e = [e2e_phase(torch, dev, path) for path in PATHS]
     for row in kernels:
-        run = e2e["c"] if row["name"] == "entropy_exit_argmax" else e2e["a"]
-        row["launches"] = run["launches"][row["name"]]
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, runs=[e2e['a'], e2e['b'], e2e['c']], profile=e2e['profile']))}")
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
+        by_path = {r["arch"]: sum(run["launches"][row["name"]] for run in r["runs"])
+                   for r in e2e}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        steps = {r["arch"]: r["runs"][0]["decode_steps"] for r in e2e}
+        row["launches_per_decode_step"] = {
+            r["arch"]: r["runs"][0]["launches"][row["name"]] / steps[r["arch"]]
+            for r in e2e}
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, paths=e2e))}")
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    if _log_file is not None:
+        _log_file.close()
     return 0
 
 

@@ -84,7 +84,7 @@ class ModelConfig:
     exit_threshold: float = 0.5  # normalized-entropy exit threshold
     # --- serving --------------------------------------------------------------
     # Decode hot path: dispatch to the hand-written Hopper kernels
-    # (flash_decode, fused entropy-exit+argmax)?  None = auto: kernels on
+    # (flash_decode, ssd_update, ssd_scan, fused entropy-exit+argmax)?  None = auto: kernels on
     # a CUDA device, plain PyTorch versions on CPU tensors; asking for the
     # kernels anywhere but a CUDA sm_90 device raises.  Serving
     # constructors can override.
@@ -126,10 +126,22 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
 
-ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b",)
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
-_ALIAS = {"phi3-mini-3.8b": "phi3_mini_3_8b"}
+
+ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b")
+
+_ALIAS = {
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-1.2b": "zamba2_1_2b",
+}
 
 
 def _module(arch: str):

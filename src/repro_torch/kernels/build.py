@@ -25,7 +25,7 @@ __all__ = ["KERNEL_SOURCES", "build", "load", "source_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_decode", "entropy_exit")
+KERNEL_SOURCES = ("flash_decode", "entropy_exit", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,7 +4,9 @@
 // Replaces the reference package's Pallas TPU kernels
 // repro/kernels/entropy_exit.py::entropy_exit_argmax_heads_pallas (body
 // `_kernel_argmax_heads`) and, as its K = 1 launch,
-// entropy_exit_argmax_pallas (body `_kernel_argmax`).
+// entropy_exit_argmax_pallas (body `_kernel_argmax`); the same kernel
+// with the argmax compiled out (kArgmax = false, K = 1) replaces
+// entropy_exit_pallas (body `_kernel`), the entropy + flag pair alone.
 //
 // What it computes, per (head k, row b) of logits (K, B, V) bf16: an fp32
 // online (max m, sum s of e^(l-m), sum u of l*e^(l-m)) over V, giving
@@ -40,6 +42,7 @@ struct Acc {
   int bi;         // its first index
 };
 
+template <bool kArgmax>
 __device__ __forceinline__ Acc merge(const Acc& a, const Acc& b) {
   Acc r;
   r.m = fmaxf(a.m, b.m);
@@ -52,22 +55,29 @@ __device__ __forceinline__ Acc merge(const Acc& a, const Acc& b) {
     r.s = a.s * fa + b.s * fb;
     r.u = a.u * fa + b.u * fb;
   }
-  const bool take_b = b.bv > a.bv || (b.bv == a.bv && b.bi < a.bi);
-  r.bv = take_b ? b.bv : a.bv;
-  r.bi = take_b ? b.bi : a.bi;
+  if (kArgmax) {
+    const bool take_b = b.bv > a.bv || (b.bv == a.bv && b.bi < a.bi);
+    r.bv = take_b ? b.bv : a.bv;
+    r.bi = take_b ? b.bi : a.bi;
+  }
   return r;
 }
 
+template <bool kArgmax>
 __device__ __forceinline__ Acc shfl(const Acc& a, int o) {
-  Acc r;
+  Acc r = a;
   r.m = __shfl_xor_sync(0xffffffffu, a.m, o);
   r.s = __shfl_xor_sync(0xffffffffu, a.s, o);
   r.u = __shfl_xor_sync(0xffffffffu, a.u, o);
-  r.bv = __shfl_xor_sync(0xffffffffu, a.bv, o);
-  r.bi = __shfl_xor_sync(0xffffffffu, a.bi, o);
+  if (kArgmax) {
+    r.bv = __shfl_xor_sync(0xffffffffu, a.bv, o);
+    r.bi = __shfl_xor_sync(0xffffffffu, a.bi, o);
+  }
   return r;
 }
 
+// kArgmax = false: entropy and flag only; idx_out is not touched.
+template <bool kArgmax>
 __global__ void __launch_bounds__(kThreads) entropy_exit_argmax_kernel(
     const __nv_bfloat16* __restrict__ logits,  // (K, B, V)
     const float* __restrict__ thr,             // (K,)
@@ -92,13 +102,14 @@ __global__ void __launch_bounds__(kThreads) entropy_exit_argmax_kernel(
       a.s += e;
       a.u += l * e;
     }
-    if (l > a.bv) {  // strictly greater: first index within the thread
+    if (kArgmax && l > a.bv) {  // strictly greater: first index in the thread
       a.bv = l;
       a.bi = i;
     }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) a = merge(a, shfl(a, o));
+  for (int o = 16; o > 0; o >>= 1)
+    a = merge<kArgmax>(a, shfl<kArgmax>(a, o));
 
   __shared__ Acc part[kWarps];
   const int lane = threadIdx.x & 31;
@@ -107,12 +118,12 @@ __global__ void __launch_bounds__(kThreads) entropy_exit_argmax_kernel(
   __syncthreads();
   if (threadIdx.x == 0) {
     Acc r = part[0];
-    for (int w = 1; w < kWarps; ++w) r = merge(r, part[w]);
+    for (int w = 1; w < kWarps; ++w) r = merge<kArgmax>(r, part[w]);
     const float lse = r.m + logf(r.s);
     const float h = (lse - r.u / r.s) / log_v;
     h_out[row] = h;
     flag_out[row] = h < thr[row / b] ? 1 : 0;
-    idx_out[row] = r.bi;
+    if (kArgmax) idx_out[row] = r.bi;
   }
 }
 
@@ -126,10 +137,24 @@ extern "C" int entropy_exit_argmax_bf16(const void* logits, const void* thr,
                                         int k, int b, int v, float log_v,
                                         void* stream) {
   if (k < 1 || b < 1 || v < 1) return static_cast<int>(cudaErrorInvalidValue);
-  entropy_exit_argmax_kernel<<<k * b, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  entropy_exit_argmax_kernel<true><<<k * b, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(logits),
       static_cast<const float*>(thr), static_cast<float*>(h),
       static_cast<uint8_t*>(flag), static_cast<int32_t*>(idx), b, v, log_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same without the argmax: logits (K, B, V) bf16, thr (K,) f32;
+// outputs (K, B) f32 and bool.
+extern "C" int entropy_exit_bf16(const void* logits, const void* thr, void* h,
+                                 void* flag, int k, int b, int v, float log_v,
+                                 void* stream) {
+  if (k < 1 || b < 1 || v < 1) return static_cast<int>(cudaErrorInvalidValue);
+  entropy_exit_argmax_kernel<false><<<k * b, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(logits),
+      static_cast<const float*>(thr), static_cast<float*>(h),
+      static_cast<uint8_t*>(flag), nullptr, b, v, log_v);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Dispatch layer of the port's decode-path kernels.
+"""Dispatch layer of the port's serving-path kernels.
 
 The model and serving code call these wrappers when ``use_kernels`` is on:
 
@@ -8,7 +8,15 @@ The model and serving code call these wrappers when ``use_kernels`` is on:
   * :func:`entropy_exit_argmax_heads` — the fused BranchyNet exit decision
     of K stacked branch heads in one launch (``serving.tiers``);
   * :func:`entropy_exit_argmax` — the single-head form, the same kernel's
-    K = 1 launch (``TierExecutor(batched_heads=False)``).
+    K = 1 launch (``TierExecutor(batched_heads=False)``);
+  * :func:`entropy_exit` — entropy and flag without the token, the same
+    kernel with the argmax compiled out (no serving caller: calibration
+    sweeps, as in the reference);
+  * :func:`ssd_update` — one Mamba2 SSD decode step against the resident
+    state, updated in place through the same ``rows`` map
+    (``models.mamba.mamba_apply`` decode);
+  * :func:`ssd_scan` — the SSD scan of admitted prompts from a zero state
+    (``models.mamba.mamba_apply`` row-targeted prefill).
 
 A wrapper given CPU tensors runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`); given CUDA tensors it launches the
@@ -29,6 +37,7 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = [
+    "entropy_exit",
     "entropy_exit_argmax",
     "entropy_exit_argmax_heads",
     "flash_decode",
@@ -37,6 +46,8 @@ __all__ = [
     "reset_launches",
     "resolve_device",
     "resolve_use_kernels",
+    "ssd_scan",
+    "ssd_update",
 ]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
@@ -44,6 +55,9 @@ launches: dict[str, int] = {
     "flash_decode": 0,
     "entropy_exit_argmax_heads": 0,
     "entropy_exit_argmax": 0,
+    "entropy_exit": 0,
+    "ssd_update": 0,
+    "ssd_scan": 0,
 }
 
 
@@ -129,4 +143,40 @@ def flash_decode(q, k, v, k_pos, q_pos, rows=None, *, window: int = 0):
 
     out = flash_decode_cuda(q, k, v, k_pos, q_pos, rows, window=window)
     launches["flash_decode"] += 1
+    return out
+
+
+def entropy_exit(logits: torch.Tensor, threshold):
+    """(B, V) logits -> (normalized entropy (B,), exit flags (B,))."""
+    if not logits.is_cuda:
+        return ref.entropy_exit_ref(logits, threshold)
+    from repro_torch.kernels.entropy_exit import entropy_exit_cuda
+
+    out = entropy_exit_cuda(logits, threshold)
+    launches["entropy_exit"] += 1
+    return out
+
+
+def ssd_update(h_state, x, a, b_vec, c_vec, rows=None):
+    """One SSD decode step: row i of the sub-batch reads state row
+    ``rows[i]`` (clamped) and writes its new state back there in place
+    (rows >= Bc drop).  Returns y (B, H, P) fp32."""
+    if not h_state.is_cuda:
+        return ref.ssd_update_ref(h_state, x, a, b_vec, c_vec, rows)
+    from repro_torch.kernels.ssd_scan import ssd_update_cuda
+
+    out = ssd_update_cuda(h_state, x, a, b_vec, c_vec, rows)
+    launches["ssd_update"] += 1
+    return out
+
+
+def ssd_scan(x, a, b_mat, c_mat, *, chunk: int = 64):
+    """SSD scan from a zero state: (y (B, L, H, P), final state
+    (B, H, P, N)), fp32; B and C per group, (B, L, G, N)."""
+    if not x.is_cuda:
+        return ref.ssd_scan_ref(x, a, b_mat, c_mat)
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    out = ssd_scan_cuda(x, a, b_mat, c_mat, chunk=chunk)
+    launches["ssd_scan"] += 1
     return out

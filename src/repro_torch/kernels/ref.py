@@ -16,12 +16,25 @@ import torch
 from repro_torch.core.calibration import normalized_entropy
 
 __all__ = [
+    "entropy_exit_ref",
     "entropy_exit_argmax_ref",
     "entropy_exit_argmax_heads_ref",
     "flash_decode_ref",
+    "ssd_scan_ref",
+    "ssd_update_ref",
 ]
 
 NEG_INF = -1e30
+
+
+def entropy_exit_ref(
+    logits: torch.Tensor, threshold: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, V) logits -> (normalized entropy (B,) f32, exit flag (B,) bool);
+    fp32 math, normalized by log of the logits width (pad lanes
+    included)."""
+    h = normalized_entropy(logits)
+    return h, h < threshold
 
 
 def entropy_exit_argmax_ref(
@@ -83,3 +96,66 @@ def flash_decode_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckd->bkgd", p, v.float())
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def _group_to_heads(m: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., G, N) per-group B or C -> (..., H, N), ``rep = H / G``
+    consecutive heads per group."""
+    return m.float().repeat_interleave(heads // m.shape[-2], dim=-2)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (B, L, H, P) dt-scaled inputs
+    a: torch.Tensor,  # (B, L, H) per-step log decay (negative)
+    b_mat: torch.Tensor,  # (B, L, G, N), G divides H
+    c_mat: torch.Tensor,  # (B, L, G, N)
+    h0: torch.Tensor | None = None,  # (B, H, P, N) initial state
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequential SSM recurrence, SSD's semantic definition:
+        h_t = exp(a_t) h_{t-1} + x_t (x) B_t ;  y_t = h_t . C_t
+    fp32 math; B and C are shared by ``H / G`` consecutive heads (G = H is
+    the reference oracle's per-head form).  Returns (y (B, L, H, P) in x's
+    dtype, final state (B, H, P, N) fp32)."""
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    xf, af = x.float(), a.float()
+    bf, cf = _group_to_heads(b_mat, h), _group_to_heads(c_mat, h)
+    hs = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+          if h0 is None else h0.float())
+    ys = []
+    for t in range(l):
+        hs = hs * torch.exp(af[:, t])[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xf[:, t], bf[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", hs, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), hs
+
+
+def ssd_update_ref(
+    h_state: torch.Tensor,  # (Bc, H, P, N) fp32 resident state, updated in place
+    x: torch.Tensor,  # (B, H, P) dt-scaled input
+    a: torch.Tensor,  # (B, H) dt * A (negative)
+    b_vec: torch.Tensor,  # (B, G, N)
+    c_vec: torch.Tensor,  # (B, G, N)
+    rows: torch.Tensor | None = None,  # (B,) sub-batch row -> state row
+) -> torch.Tensor:
+    """One recurrent SSD decode step against the resident state, in place:
+    row i reads state row ``min(rows[i], Bc - 1)`` (the reference's clamped
+    gather), computes ``h' = e^a h + x (x) B`` and ``y = h' . C`` in fp32,
+    and writes ``h'`` back to row ``rows[i]`` — a row ``>= Bc`` (the
+    compacted runtime's out-of-bounds sentinel) drops its write, as the
+    reference's ``.at[rows].set(mode="drop")`` does.  Real rows must be
+    distinct.  Returns y (B, H, P) fp32."""
+    bc, nh = h_state.shape[:2]
+    b = x.shape[0]
+    r = (torch.arange(b, device=x.device) if rows is None
+         else rows.long().clamp(max=bc))
+    h_prev = h_state[r.clamp(max=bc - 1)]
+    h_new = h_prev * torch.exp(a.float())[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", x.float(), _group_to_heads(b_vec, nh))
+    y = torch.einsum("bhpn,bhn->bhp", h_new, _group_to_heads(c_vec, nh))
+    # Every sentinel lands on a discarded extra row: no index aliases a
+    # real row and nothing has to be fetched to the host.
+    stage = torch.cat([h_state, h_state[:1]])
+    stage[r] = h_new
+    h_state.copy_(stage[:bc])
+    return y

@@ -169,26 +169,33 @@ def _cache_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     return cache
 
 
-def _cache_prefill_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                        rows) -> dict:
-    """Row-targeted prompt prefill: row ``rows[i]`` ends exactly as a fresh
-    cache that just prefilled prompt i (slots past the prompt reset to
-    empty).  ``rows`` is the host-side admission plan (a CPU tensor, numpy
-    array or list); out-of-bounds sentinel rows are dropped on the host, so
-    no device index ever aliases a real row.  Other rows and ``length`` are
-    untouched."""
+def plan_rows(rows, bc: int, device):
+    """A host-side admission plan (CPU tensor, numpy array or list) on
+    ``device``: (prompt rows kept, their cache rows), with sentinel rows
+    (>= ``bc``) dropped on the host so no device index ever aliases a real
+    row; None when every row is a sentinel."""
     rows = torch.as_tensor(rows, dtype=torch.long)
     if rows.is_cuda:
         raise ValueError("prefill rows are a host-side plan: pass them on "
                          "the CPU")
-    keep = torch.nonzero(rows < cache["k"].shape[0]).flatten()
+    keep = torch.nonzero(rows < bc).flatten()
     if keep.numel() == 0:
+        return None
+    return keep.to(device), rows[keep].to(device)
+
+
+def _cache_prefill_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                        rows) -> dict:
+    """Row-targeted prompt prefill: row ``rows[i]`` ends exactly as a fresh
+    cache that just prefilled prompt i (slots past the prompt reset to
+    empty).  ``rows`` is the host-side admission plan (:func:`plan_rows`).
+    Other rows and ``length`` are untouched."""
+    plan = plan_rows(rows, cache["k"].shape[0], k.device)
+    if plan is None:
         return cache
-    dev = k.device
-    sel = keep.to(dev)
+    sel, tgt = plan
     fk, fv, fp = _fresh_rows(k[sel], v[sel], cache["k"].shape[1],
                              cache["k"].dtype)
-    tgt = rows[keep].to(dev)
     cache["k"][tgt] = fk
     cache["v"][tgt] = fv
     cache["pos"][tgt] = fp

@@ -1,18 +1,28 @@
-"""BranchyModel for the dense GQA trunk: backbone + tied side branches,
-with prefill / decode entry points — counterpart of ``repro.models.model``.
+"""BranchyModel for the dense GQA, Mamba2 (``ssm``) and Zamba2 (``hybrid``)
+trunks: backbone + tied side branches, with prefill / decode entry points
+— counterpart of ``repro.models.model``.
 
 Trunk layers are numbered 1..L like the paper's ``v_i``; side branches sit
 after the layers in ``cfg.branch_layers`` and are collected by
 ``run_trunk(collect=...)``.  Branch heads are tied to the main LM head
 (per-branch norm + shared unembedding), as in the reference.
 
+A hybrid trunk runs one shared attention block (``params["shared_attn"]``,
+its own KV cache per site) after every ``attn_every``-th Mamba2 layer
+(:func:`hybrid_sites`).
+
 Params (the reference's pytree layout, as tensors):
     {"embed": (V, D), "blocks": stacked (L, ...) block params,
-     "final_norm": {"scale": (D,)}, "lm_head": (D, V),
-     "branches": {"scale": (n_branches, D)}}
+     "final_norm": {"scale": (D,)}, "lm_head": (D, V) (absent when the
+     embedding is tied), "branches": {"scale": (n_branches, D)},
+     "shared_attn": one GQA block (hybrid)}
 Caches (full-batch resident, updated in place):
-    {"length": () int32, "blocks": {"self": {"k", "v": (L, B, C, Kh, D),
-     "pos": (L, B, C) int32, "length": (L,) int32}}}
+    {"length": () int32,
+     "blocks": {"self": {"k", "v": (L, B, C, Kh, D), "pos": (L, B, C) int32,
+                         "length": (L,) int32}}             (dense)
+               {"self": {"conv": (L, B, W-1, conv_dim) f32,
+                         "ssm": (L, B, H, P, N) f32, "length": (L,)}}  (ssm)
+     "shared_attn": {"self": KV ring with a leading (n_sites,) axis} (hybrid)}
 """
 
 from __future__ import annotations
@@ -24,14 +34,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.calibration import normalized_entropy
 from repro_torch.kernels.ops import resolve_device, resolve_use_kernels
-from repro_torch.models.attention import init_kv_cache
-from repro_torch.models.layers import (
-    dense,
-    embed,
-    norm_apply,
-    truncated_normal_,
+from repro_torch.models.layers import dense, embed, norm_apply
+from repro_torch.models.transformer import (
+    BlockKind,
+    block_apply,
+    init_block_cache,
+    layer_slice,
+    run_stack,
+    stack_init,
 )
-from repro_torch.models.transformer import BlockKind, run_stack
 
 __all__ = [
     "branch_logits_per_head",
@@ -40,6 +51,7 @@ __all__ = [
     "compute_params",
     "decode_step",
     "embed_decode",
+    "hybrid_sites",
     "init_caches",
     "init_params",
     "prefill",
@@ -48,7 +60,8 @@ __all__ = [
 ]
 
 _MATMUL_LEAVES = frozenset(
-    {"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+    {"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+     "w_z", "w_xbc", "w_dt", "out_proj"}
 )
 
 
@@ -58,10 +71,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def trunk_layout(cfg: ModelConfig) -> list[tuple[str, BlockKind, int]]:
     """Ordered stacks composing the trunk: (param key, kind, n_layers)."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"the port runs dense trunks only, not {cfg.arch_type!r}")
-    return [("blocks", BlockKind("gqa", "dense"), cfg.num_layers)]
+    if cfg.arch_type == "dense":
+        return [("blocks", BlockKind("gqa", "dense"), cfg.num_layers)]
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return [("blocks", BlockKind("mamba", "none"), cfg.num_layers)]
+    raise NotImplementedError(
+        f"the port runs dense, ssm and hybrid trunks, not {cfg.arch_type!r}")
+
+
+def hybrid_sites(cfg: ModelConfig) -> tuple[int, ...]:
+    """Trunk layers after which the shared attention block runs (Zamba2)."""
+    if cfg.arch_type != "hybrid" or not cfg.attn_every:
+        return ()
+    return tuple(range(cfg.attn_every, cfg.num_layers + 1, cfg.attn_every))
+
+
+_SHARED_ATTN_KIND = BlockKind("gqa", "dense")
 
 
 def _total_layers(cfg: ModelConfig) -> int:
@@ -73,44 +98,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random fp32 params drawn from ``generator`` (which must live on
     ``device``, by default the current CUDA device): fan-in scaled
-    truncated normals for the projections, N(0, 0.02^2) for the embedding
-    and LM head, unit norm scales."""
-    trunk_layout(cfg)
+    truncated normals for the projections (the Mamba2 mixer's own
+    distributions in :func:`repro_torch.models.mamba.mamba_init`),
+    N(0, 0.02^2) for the embedding and LM head, unit norm scales."""
+    layout = trunk_layout(cfg)
     device = resolve_device(device)
-    d, ff, L = cfg.d_model, cfg.d_ff, cfg.num_layers
-    v = cfg.padded_vocab_size
+    d, v = cfg.d_model, cfg.padded_vocab_size
 
     def normal(*shape, std):
         return torch.randn(shape, generator=generator, device=device).mul_(std)
 
-    def proj(d_in, d_out):
-        t = torch.empty((L, d_in, d_out), device=device)
-        return truncated_normal_(t, generator, d_in ** -0.5)
-
-    def ones(*shape):
-        return torch.ones(shape, device=device)
-
     params = {"embed": normal(v, d, std=0.02)}
-    params["blocks"] = {
-        "norm1": {"scale": ones(L, d)},
-        "attn": {
-            "wq": proj(d, cfg.q_dim),
-            "wk": proj(d, cfg.kv_dim),
-            "wv": proj(d, cfg.kv_dim),
-            "wo": proj(cfg.q_dim, d),
-        },
-        "norm2": {"scale": ones(L, d)},
-        "mlp": {
-            "w_gate": proj(d, ff),
-            "w_up": proj(d, ff),
-            "w_down": proj(ff, d),
-        },
-    }
-    params["final_norm"] = {"scale": ones(d)}
+    for name, kind, n in layout:
+        params[name] = stack_init(cfg, kind, n, generator, device)
+    if cfg.arch_type == "hybrid":
+        params["shared_attn"] = layer_slice(
+            stack_init(cfg, _SHARED_ATTN_KIND, 1, generator, device), 0)
+    params["final_norm"] = {"scale": torch.ones(d, device=device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, v, std=0.02)
     if cfg.branch_layers:
-        params["branches"] = {"scale": ones(len(cfg.branch_layers), d)}
+        params["branches"] = {
+            "scale": torch.ones(len(cfg.branch_layers), d, device=device)}
     return params
 
 
@@ -135,13 +144,19 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
     dtype = dtype or compute_dtype(cfg)
     device = resolve_device(device)
     cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+
+    def stacked(tree, n):
+        return {k: stacked(v, n) if isinstance(v, dict)
+                else v.expand(n, *v.shape).contiguous() for k, v in tree.items()}
+
     caches: dict = {"length": torch.zeros((), dtype=torch.int32, device=device)}
-    for name, _kind, n in trunk_layout(cfg):
-        one = init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim,
-                            dtype, device)
-        caches[name] = {"self": {
-            k: v.expand(n, *v.shape).contiguous() for k, v in one.items()
-        }}
+    for name, kind, n in trunk_layout(cfg):
+        caches[name] = stacked(
+            init_block_cache(batch, cap, cfg, kind, dtype, device), n)
+    sites = hybrid_sites(cfg)
+    if sites:
+        caches["shared_attn"] = stacked(init_block_cache(
+            batch, cap, cfg, _SHARED_ATTN_KIND, dtype, device), len(sites))
     return caches
 
 
@@ -158,14 +173,17 @@ def run_trunk(
     rows=None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, dict | None, dict[int, torch.Tensor]]:
-    """Run trunk layers [lo, hi), collecting the residual stream after the
-    ``collect`` layers.  Returns (h, caches, {layer: hidden}); caches are
-    updated in place.  ``rows``: h is a sub-batch whose stateful reads and
-    writes go to those rows of the full-batch caches (decode: a device
-    tensor with out-of-bounds sentinels; prefill: a host-side plan)."""
+    """Run trunk layers [lo, hi), segmenting at the ``collect`` layers and
+    (hybrid) the shared-attention sites.  Returns (h, caches, {layer:
+    hidden}); caches are updated in place.  The shared block runs with the
+    layer it follows, so a cut after site s keeps s on the lower tier.
+    ``rows``: h is a sub-batch whose stateful reads and writes go to those
+    rows of the full-batch caches (decode: a device tensor with
+    out-of-bounds sentinels; prefill: a host-side plan)."""
     (name, kind, n), = trunk_layout(cfg)
     lo, hi = layer_range or (0, n)
-    stops = sorted({hi, *(c for c in collect if lo < c < hi)})
+    sites = hybrid_sites(cfg)
+    stops = sorted({hi, *(c for c in (*collect, *sites) if lo < c < hi)})
     collected: dict[int, torch.Tensor] = {}
     start = lo
     for stop in stops:
@@ -174,6 +192,12 @@ def run_trunk(
             caches[name] if caches is not None else None,
             lo=start, hi=stop, rows=rows, use_kernels=use_kernels,
         )
+        if stop in sites:
+            site_cache = (layer_slice(caches["shared_attn"], sites.index(stop))
+                          if caches is not None else None)
+            h = block_apply(params["shared_attn"], h, cfg, _SHARED_ATTN_KIND,
+                            positions, site_cache, rows=rows,
+                            use_kernels=use_kernels)
         if stop in collect:
             collected[stop] = h
         start = stop
@@ -235,16 +259,19 @@ def prefill(
     caches: dict,
     *,
     rows=None,
+    use_kernels: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Process whole prompts; returns (last-position logits (B, 1, V),
     caches).  ``rows`` (continuous-batching admission, a host-side plan):
     prompt row i prefills cache row ``rows[i]`` in place, ending exactly as
     a fresh solo prefill; sentinel rows (>= B) drop their writes and the
-    step counter is untouched."""
+    step counter is untouched.  ``use_kernels``: the admission scan of a
+    Mamba2 layer runs in the Hopper ``ssd_scan`` kernel."""
     h = embed(params["embed"], tokens, compute_dtype(cfg))
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
-    h2, caches, _ = run_trunk(params, h, cfg, positions, caches, rows=rows)
+    h2, caches, _ = run_trunk(params, h, cfg, positions, caches, rows=rows,
+                              use_kernels=use_kernels)
     if rows is None:
         caches["length"].fill_(tokens.shape[1])
     hf = norm_apply(cfg.norm_type, params["final_norm"], h2)

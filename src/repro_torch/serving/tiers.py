@@ -38,12 +38,15 @@ What the port changes, and why:
   * **No jit.**  PyTorch runs eagerly; a segment is a method call.
   * **Caches update in place** (a full-size cache is 12.9 GB).  The
     reference re-runs an overflowed step from its immutable entry caches;
-    here the step first snapshots, for every layer and row, the one ring
-    slot the step can write (``pos % C``, or ``length % C`` in lock-step)
-    plus the step counters, and restores them before a re-run — a few MB
-    instead of a clone of the cache.  The snapshot is taken only when some
-    planned bucket is narrower than the batch (otherwise nothing can
-    overflow).
+    here the step first snapshots what it can write and restores it before
+    a re-run: for every KV ring (trunk layers and hybrid shared-attention
+    sites), per layer and row, the one slot the step writes (``pos % C``,
+    or ``length % C`` in lock-step) — a few MB instead of a clone of the
+    cache; for every Mamba2 layer the whole conv window and SSM state,
+    which a step overwrites in every row it runs (about 320 MB at
+    Zamba2-1.2B's size); and every step counter.  The snapshot is taken
+    only when some planned bucket is narrower than the batch (otherwise
+    nothing can overflow).
   * **The single fetch** packs every fetched tensor into one int32 buffer,
     so a step costs one device-to-host copy, as the reference's one
     ``device_get`` does.  Host inputs (positions, the live mask) go up
@@ -76,6 +79,7 @@ from repro_torch.models.model import (
     compute_dtype,
     compute_params,
     embed_decode,
+    hybrid_sites,
     prefill,
     run_trunk,
     trunk_layout,
@@ -386,13 +390,24 @@ class TierExecutor:
         return out
 
     # ---------------------------------------------- overflow-retry state
+    def _stateful(self, caches):
+        """(KV rings, Mamba2 states) of the caches: the stacked ``self``
+        dicts of the trunk's attention stacks and hybrid shared-attention
+        sites, and of its Mamba2 stacks."""
+        rings, states = [], []
+        for name, kind, _n in trunk_layout(self.cfg):
+            (rings if kind.mixer == "gqa" else states).append(caches[name]["self"])
+        if hybrid_sites(self.cfg):
+            rings.append(caches["shared_attn"]["self"])
+        return rings, states
+
     def _snapshot(self, caches, pos_t):
-        """Every ring slot this step can write, per layer and row, plus the
+        """Everything this step can write, per layer and row, plus the
         step counters — what a re-run must restore (see module doc)."""
+        rings, states = self._stateful(caches)
         saved = []
-        for name, _kind, n in trunk_layout(self.cfg):
-            kv = caches[name]["self"]
-            bc, c = kv["pos"].shape[1:]
+        for kv in rings:
+            n, bc, c = kv["pos"].shape
             if pos_t.dim() == 1:
                 slots = (pos_t.long() % c)[None, :].expand(n, bc)
             else:
@@ -400,18 +415,24 @@ class TierExecutor:
             li = torch.arange(n, device=self.device)[:, None]
             bi = torch.arange(bc, device=self.device)[None, :]
             idx = (li, bi, slots)
-            saved.append((kv, idx, {k: kv[k][idx].clone() for k in ("k", "v", "pos")},
-                          kv["length"].clone()))
-        return saved, caches["length"].clone()
+            saved.append((kv, idx, {k: kv[k][idx].clone() for k in ("k", "v", "pos")}))
+        for st in states:
+            saved.append((st, None, {k: st[k].clone() for k in ("conv", "ssm")}))
+        lengths = [(t, t.clone()) for t in
+                   (caches["length"], *(c["length"] for c in rings + states))]
+        return saved, lengths
 
     @staticmethod
     def _restore(snapshot, caches) -> None:
-        saved, length = snapshot
-        for kv, idx, vals, lens in saved:
+        saved, lengths = snapshot
+        for buf, idx, vals in saved:
             for k, v in vals.items():
-                kv[k][idx] = v
-            kv["length"].copy_(lens)
-        caches["length"].copy_(length)
+                if idx is None:
+                    buf[k].copy_(v)
+                else:
+                    buf[k][idx] = v
+        for t, v in lengths:
+            t.copy_(v)
 
     # -------------------------------------------------------------- step
     def _plan_buckets(self, batch: int) -> dict[int, int]:
@@ -572,18 +593,23 @@ class TierExecutor:
         on the device — no device-to-host sync)."""
         toks = self._upload(tokens, torch.int64)
         logits, caches = prefill(self.params, toks, self.cfg, caches,
-                                 rows=np.asarray(rows, np.int64))
+                                 rows=np.asarray(rows, np.int64),
+                                 use_kernels=self.use_kernels)
         return caches, logits[:, 0].argmax(-1).to(torch.int32)
 
     def reset_rows(self, caches: dict, rows) -> dict:
-        """Mark cache rows empty (``pos`` -> -1) without moving K/V;
-        sentinel rows (>= batch) are ignored."""
+        """Mark cache rows empty without moving K/V: ring slot validity
+        (``pos``) -> -1, Mamba2 conv window and SSM state -> 0; sentinel
+        rows (>= batch) are ignored."""
         rows = np.asarray(rows, np.int64)
-        for name, _kind, _n in trunk_layout(self.cfg):
-            pos = caches[name]["self"]["pos"]
-            keep = rows[rows < pos.shape[1]]
+        rings, states = self._stateful(caches)
+        for buf, key, fill in ([(kv, "pos", -1) for kv in rings]
+                               + [(st, k, 0) for st in states
+                                  for k in ("conv", "ssm")]):
+            t = buf[key]
+            keep = rows[rows < t.shape[1]]
             if keep.size:
-                pos[:, torch.as_tensor(keep, device=self.device)] = -1
+                t[:, torch.as_tensor(keep, device=self.device)] = fill
         return caches
 
 
