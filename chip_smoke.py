@@ -14,9 +14,15 @@ exit) if any phase fails:
      main paths' shapes, with the tolerance stated beside each check, and
      its time (``torch.profiler`` device time, mean of 30 calls), the plain
      version's time, the time of one PyTorch library call computing the
-     same function where one exists, and its bound (the larger of bytes /
-     3.35 TB/s and operations / the fp32 peak of 67 TFLOP/s, counted on
-     these inputs);
+     same function where one exists, and its bound (the largest of bytes /
+     3.35 TB/s, fp32 operations / 67 TFLOP/s and TF32 tensor-core
+     operations / 495 TFLOP/s, counted on these inputs: flash_decode's
+     bytes are those of the valid slots only).  flash_decode is also held
+     at the serving shape (~136 valid slots of 4096), on a fully masked
+     row, a wrapped ring, B = 1 over a full cache and every head layout
+     its wrapper accepts (G, even D, K/V aligned or not), and each row of
+     the serving batch must equal, bit for bit, the same row computed
+     alone; ssd_scan also with fp32 B, C and misaligned token strides;
   4. end to end — three paths, each a ``PartitionedServer`` at full
      published width and depth with random weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
@@ -69,6 +75,7 @@ _log_file = None
 
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
+TF32_TC_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 SEED = 0
 N_REQ, PROMPT, NEW_TOKENS = 8, 128, 16
@@ -165,20 +172,21 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes over the memory rate
-    or fp32 operations over the fp32 peak, whichever is larger."""
-    tb, tf = nbytes / HBM_BPS, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate,
+    fp32 operations over the fp32 peak, or TF32 tensor-core operations over
+    their own peak, whichever is largest (the units run side by side)."""
+    tb, tf = nbytes / HBM_BPS, max(flops / FP32_FLOPS, tc_flops / TF32_TC_FLOPS)
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
 def kernel_row(name, source, replaces, err, call, match, plain, nbytes, flops,
-               library_ms=None, **extra) -> dict:
+               library_ms=None, tc_flops=0.0, **extra) -> dict:
     """Time the kernel and its plain version and make its JSON row."""
     ms, src = device_ms(call, match)
     wall = time_ms(call)
     plain_ms, _ = device_ms(plain)
-    bound_ms, by = bound(nbytes, flops)
+    bound_ms, by = bound(nbytes, flops, tc_flops)
     log(f"  {name}: kernel {ms:.4f} ms on the device ({src}; {wall:.4f} ms "
         f"between CUDA events with launch overhead), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({by})")
@@ -279,11 +287,90 @@ def flash_case(torch, dev, gen, b, bc, c, kh, g, d, window, sentinel=True):
     return q, k, v, k_pos, q_pos, rows
 
 
+def serving_case(torch, dev, gen, b=SLOTS, c=CONTEXT, kh=32, d=96):
+    """The serving path's attention inputs: each of B rows holds its
+    request's positions 0..q_pos in slots 0..q_pos (a 128-token prompt and
+    up to 16 decoded tokens, q_pos in 128..143) and -1 beyond; the last
+    query row is the compacted runtime's out-of-bounds sentinel."""
+    q = torch.randn((b, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, c, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, c, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    q_pos = torch.randint(PROMPT, PROMPT + NEW_TOKENS, (b,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    rows = torch.randperm(b, generator=gen, device=dev).to(torch.int32)
+    slots = torch.arange(c, dtype=torch.int32, device=dev).expand(b, c)
+    k_pos = torch.where(slots <= q_pos[rows.argsort()][:, None], slots, -1).contiguous()
+    rows[-1] = b
+    return q, k, v, k_pos, q_pos, rows
+
+
+def attn_bytes(q, k_pos, valid, kh, d):
+    """Bytes one call must move: q in and out, every k_pos, q_pos and rows,
+    and K and V of the valid slots only."""
+    b = q.shape[0]
+    return 2 * q.numel() * 2 + k_pos[0].numel() * b * 4 + 2 * b * 4 + 2 * valid * kh * d * 2
+
+
+def valid_slots(k_pos, q_pos, rows):
+    """Slots with 0 <= k_pos <= q_pos over the rows the query rows read."""
+    kp = k_pos[rows.long().clamp(max=k_pos.shape[0] - 1)]
+    return int(((kp >= 0) & (kp <= q_pos[:, None])).sum())
+
+
+def offset_copy(torch, t, elems: int):
+    """A contiguous copy of ``t`` whose storage starts ``elems`` elements
+    into a larger buffer: the same values at another address alignment."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def layout_sweep(torch, dev, gen) -> float:
+    """flash_decode at every head layout its wrapper accepts: G in
+    {1, 2, 4, 8} and every even D up to 256, on a small cache of two splits
+    (the second ragged), half the cases with a window.  Each layout runs
+    twice: with 16-byte aligned K/V and k_pos rows (the 16-byte loads where
+    D is a multiple of 8), and with K/V 4 bytes off 16-byte alignment and a
+    k_pos row length that breaks the int4 load (bf16-pair loads, scalar
+    k_pos).  Together they reach every kernel instantiation the launcher
+    can pick.  Each output within one bf16 ulp of the fp32 plain version;
+    one check per (G, alignment) names the worst D."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+
+    worst_all = 0.0
+    for g in (1, 2, 4, 8):
+        for aligned, c in ((True, 700), (False, 702)):
+            worst, worst_d, bad = 0.0, 0, []
+            for d in range(2, 257, 2):
+                window = 200 if d % 4 == 0 else 0
+                q, k, v, k_pos, q_pos, rows = flash_case(torch, dev, gen, 2, 3, c, 2, g, d,
+                                                         window)
+                if not aligned:
+                    k, v = offset_copy(torch, k, 2), offset_copy(torch, v, 2)
+                out = flash_decode_cuda(q, k, v, k_pos, q_pos, rows, window=window)
+                want = ref.flash_decode_ref(q.float(), k.float(), v.float(), k_pos,
+                                            q_pos, rows, window)
+                e = (out.float() - want).abs()
+                if not bool((e <= BF16_ULP * want.abs() + 1e-5).all()):
+                    bad.append(d)
+                if float(e.max()) > worst:
+                    worst, worst_d = float(e.max()), d
+            torch.cuda.synchronize()
+            check(not bad, f"flash_decode G={g}, D=2..256 (128 layouts), K/V "
+                  f"{'16-byte aligned' if aligned else '4 bytes off 16'}, C={c}: "
+                  f"|out - fp32 plain| <= 1 bf16 ulp (max err {worst:.3g} at D={worst_d}; "
+                  f"failing D: {bad or 'none'})")
+            worst_all = max(worst_all, worst)
+    return worst_all
+
+
 def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.flash_decode import flash_decode_cuda, split_plan
 
     def compare(label, args, window):
         q, k, v, k_pos, q_pos, rows = args
@@ -298,51 +385,106 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
               f"(max err {float(err.max()):.3g})")
         return float(err.max())
 
+    def sdpa_ms(q, k, v, k_pos, q_pos, rows):
+        """Library yardstick, never called by the port: SDPA on gathered
+        rows with the validity mask."""
+        r = rows.long().clamp(max=k.shape[0] - 1)
+        kg = k[r].permute(0, 2, 1, 3)  # (B, Kh, C, D)
+        vg = v[r].permute(0, 2, 1, 3)
+        kp = k_pos[r]
+        mask = ((kp >= 0) & (kp <= q_pos[:, None].long()))[:, None, None, :]
+        qs = q[:, :, None, :]
+        ms, _ = device_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
+        return ms
+
+    split, splits = split_plan(CONTEXT)
+    log(f"flash_decode: C split into {splits} splits of {split} slots "
+        "(the plan depends on C only)")
     b, bc, c, kh, d = 8, 8, 4096, 32, 96
+    # The serving shape: ~136 valid slots per row, four input sets (1.6 GB
+    # of cache, 54 MB of valid K/V) in turn, so each call finds them cold.
+    serve_sets = [serving_case(torch, dev, gen) for _ in range(4)]
+    sq, sk, sv, skp, sqp, srows = serve_sets[0]
+    log(f"flash_decode: serving shape B=Bc={b} C={c} Kh={kh} D={d} bf16, q_pos "
+        f"{sqp.tolist()}, one sentinel row")
+    err = compare("serving shape", serve_sets[0], 0)
+    # Row independence: each row computed in the batch equals the same row
+    # computed alone (B = 1, the same rows entry), bit for bit.
+    whole = flash_decode_cuda(sq, sk, sv, skp, sqp, srows)
+    alone = torch.cat([flash_decode_cuda(sq[i:i + 1], sk, sv, skp, sqp[i:i + 1],
+                                         srows[i:i + 1]) for i in range(b)])
+    torch.cuda.synchronize()
+    check(bool(torch.equal(whole, alone)),
+          "flash_decode: every row of the batch of 8 bitwise equal to the row alone")
     main = flash_case(torch, dev, gen, b, bc, c, kh, 1, d, 0)
-    log(f"flash_decode: B={b} Bc={bc} C={c} Kh={kh} D={d} bf16, one sentinel row")
-    err = compare("Phi-3-mini shapes (D=96)", main, 0)
+    log(f"flash_decode: phase shape B={b} Bc={bc} C={c} Kh={kh} D={d} "
+        "bf16, q_pos in [C/2, C), 10% holes, one sentinel row")
+    err = max(err, compare("phase shape (D=96)", main, 0))
     small = flash_case(torch, dev, gen, 4, 6, 1000, 8, 2, 128, 300)
-    compare("G=2, window=300, C=1000", small, 300)
+    err = max(err, compare("G=2, window=300, C=1000", small, 300))
     z = flash_case(torch, dev, gen, b, bc, c, 32, 1, 64, 0)
     err = max(err, compare("Zamba2 shared block (D=64, Kh=32, G=1)", z, 0))
-    zq, zk, zv, zkp, zqp, zrows = z
-    d64_ms, _ = device_ms(lambda: flash_decode_cuda(zq, zk, zv, zkp, zqp, zrows),
-                          "flash_decode_kernel")
-    log(f"  flash_decode at D=64: kernel {d64_ms:.4f} ms on the device")
-    q, k, v, k_pos, q_pos, rows = main
-    # Library yardstick, never called by the port: SDPA on gathered rows.
-    r = rows.long().clamp(max=bc - 1)
-    kg = k[r].permute(0, 2, 1, 3)  # (B, Kh, C, D)
-    vg = v[r].permute(0, 2, 1, 3)
-    kp = k_pos[r]
-    mask = ((kp >= 0) & (kp <= q_pos[:, None].long()))[:, None, None, :]
-    qs = q[:, :, None, :]
-    lib, _ = device_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
-    valid = int(((kp >= 0) & (kp <= q_pos[:, None])).sum())
-    h = q.shape[1]
-    stream_bytes = 2 * q.numel() * 2 + b * c * 4 + 2 * b * c * kh * d * 2
-    log(f"  SDPA on gathered rows {lib:.4f} ms; bound over the {valid} valid "
-        f"slots ({stream_bytes / HBM_BPS * 1e3:.4f} ms to stream all {b * c})")
+    # A fully masked row (every k_pos past its q_pos): the uniform average.
+    fm = list(serving_case(torch, dev, gen))
+    fm[3] = fm[3].clone()
+    fm[3][fm[5][2].clamp(max=bc - 1)] = -1
+    err = max(err, compare("one fully masked row", fm, 0))
+    # A wrapped ring: q_pos >= C, slot s holds the newest position = s mod C.
+    wq = torch.randint(c + 100, 3 * c, (b,), generator=gen, device=dev, dtype=torch.int32)
+    wrows = torch.randperm(bc, generator=gen, device=dev).to(torch.int32)
+    slot = torch.arange(c, dtype=torch.int32, device=dev)
+    qw = wq[wrows.argsort()][:, None]
+    wkp = (qw - ((qw - slot) % c)).contiguous()
+    wrap = (sq, sk, sv, wkp, wq, wrows)
+    err = max(err, compare("wrapped ring (q_pos >= C)", wrap, 0))
+    err = max(err, compare("wrapped ring, window=1000", wrap, 1000))
+    # B = 1 over a full cache: Kh * S blocks fill the card.
+    one = (sq[:1], sk, sv, torch.arange(c, dtype=torch.int32, device=dev).expand(bc, c)
+           .contiguous(), torch.tensor([c - 1], dtype=torch.int32, device=dev),
+           torch.tensor([3], dtype=torch.int32, device=dev))
+    err = max(err, compare("B=1, all 4096 slots valid", one, 0))
+    err = max(err, layout_sweep(torch, dev, gen))
+
+    def timed(args_sets, label):
+        ms, _ = device_ms(rotating(flash_decode_cuda, args_sets), "flash_decode")
+        q, k, v, k_pos, q_pos, rows = args_sets[0]
+        valid = valid_slots(k_pos, q_pos, rows)
+        bms, _ = bound(attn_bytes(q, k_pos, valid, kh, q.shape[-1]), 4 * valid * kh * q.shape[-1])
+        log(f"  flash_decode {label}: {ms:.4f} ms on the device, bound {bms:.5f} ms "
+            f"over {valid} valid slots")
+        return ms, bms
+
+    phase_ms, phase_bound = timed([main], "phase shape")
+    d64_ms, _ = timed([z], "D=64 (Zamba2)")
+    b1_ms, b1_bound = timed([one], "B=1 full cache")
+    lib = sdpa_ms(*serve_sets[0])
+    phase_lib = sdpa_ms(*main)
+    valid = valid_slots(skp, sqp, srows)
+    log(f"  SDPA on gathered rows: {lib:.4f} ms at the serving shape, "
+        f"{phase_lib:.4f} ms at the phase shape")
     return [kernel_row(
         "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:99", err,
-        lambda: flash_decode_cuda(q, k, v, k_pos, q_pos, rows), "flash_decode_kernel",
-        lambda: ref.flash_decode_ref(q, k, v, k_pos, q_pos, rows),
-        nbytes=2 * q.numel() * 2 + b * c * 4 + 2 * b * 4 + 2 * valid * kh * d * 2,
-        flops=4 * valid * (h // kh) * kh * d, library_ms=lib,
-        bound_stream_all_ms=stream_bytes / HBM_BPS * 1e3, d64_ms=d64_ms)]
+        rotating(flash_decode_cuda, serve_sets), "flash_decode",
+        lambda: ref.flash_decode_ref(sq, sk, sv, skp, sqp, srows),
+        nbytes=attn_bytes(sq, skp, valid, kh, d), flops=4 * valid * kh * d,
+        library_ms=lib,
+        shape=f"serving: B=Bc={b} C={c} Kh={kh} D={d}, {valid} valid slots",
+        phase_shape_ms=phase_ms, phase_shape_bound_ms=phase_bound,
+        phase_shape_library_ms=phase_lib, d64_ms=d64_ms, b1_full_ms=b1_ms,
+        b1_full_bound_ms=b1_bound)]
 
 
-def ssd_inputs(torch, dev, gen, b, l, h, p, n, g):
+def ssd_inputs(torch, dev, gen, b, l, h, p, n, g, dtype=None, pad=0):
     """Inputs as the model hands them over: dt-scaled fp32 x (B, L, H, P),
     fp32 log decays a = dt * A (B, L, H), and B, C (B, L, G, N) as bf16
-    slices of one wider xBC activation (a token stride, not contiguous)."""
+    (or ``dtype``) slices of one wider xBC activation (a token stride, not
+    contiguous); ``pad`` extra elements per token change that stride."""
     inner = h * p
-    xbc = (torch.randn((b, l, inner + 2 * g * n), generator=gen, device=dev)
-           * 0.5).to(torch.bfloat16)
+    xbc = (torch.randn((b, l, inner + 2 * g * n + pad), generator=gen, device=dev)
+           * 0.5).to(dtype or torch.bfloat16)
     bm = xbc[..., inner:inner + g * n].reshape(b, l, g, n)
-    cm = xbc[..., inner + g * n:].reshape(b, l, g, n)
+    cm = xbc[..., inner + g * n:inner + 2 * g * n].reshape(b, l, g, n)
     dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.1 + 1e-3
     a_log = torch.rand((h,), generator=gen, device=dev) * math.log(16.0)
     x = torch.randn((b, l, h, p), generator=gen, device=dev) * dt[..., None]
@@ -412,19 +554,31 @@ def ssd_scan_phase(torch, dev, gen) -> list[dict]:
     from repro_torch.models.mamba import ssd_chunked
 
     worst = 0.0
-    for label, b, l, h, n, g in (
-        ("Zamba2-1.2B admission", 8, 128, 64, 64, 1),
-        ("ragged L=100", 8, 100, 64, 64, 1),
-        ("Mamba2-130M", 8, 128, 24, 128, 1),
-        ("G=2", 4, 128, 64, 64, 2),
+    # The main paths' layouts (bf16 B, C at a 16-byte token stride), then
+    # the kernel's other staging and precision paths: fp32 B, C (3xTF32 in
+    # every product) and token strides that are not a multiple of 16 bytes
+    # (element-wise staging instead of cp.async), at the same bounds.
+    f32 = torch.float32
+    for label, b, l, h, n, g, dtype, pad in (
+        ("Zamba2-1.2B admission", 8, 128, 64, 64, 1, None, 0),
+        ("ragged L=100", 8, 100, 64, 64, 1, None, 0),
+        ("Mamba2-130M", 8, 128, 24, 128, 1, None, 0),
+        ("G=2", 4, 128, 64, 64, 2, None, 0),
+        ("fp32 B, C", 8, 128, 64, 64, 1, f32, 0),
+        ("fp32 B, C, N=128", 8, 128, 24, 128, 1, f32, 0),
+        ("bf16 B, C, token stride 2 bytes off 16, ragged L=100", 8, 100, 64, 64, 1,
+         None, 1),
+        ("fp32 B, C, token stride 4 bytes off 16, N=128, G=2", 4, 128, 24, 128, 2,
+         f32, 1),
     ):
         p, chunk = 64, 64
-        x, a, bm, cm = ssd_inputs(torch, dev, gen, b, l, h, p, n, g)
+        x, a, bm, cm = ssd_inputs(torch, dev, gen, b, l, h, p, n, g, dtype, pad)
         y, hf = ssd_scan_cuda(x, a, bm, cm, chunk=chunk)
         yr, hr = ref.ssd_scan_ref(x, a, bm, cm)
         yc, hc = ssd_chunked(x, a, bm, cm, chunk)
         torch.cuda.synchronize()
-        log(f"ssd_scan: {label}: B={b} L={l} H={h} P={p} N={n} G={g} chunk={chunk}")
+        log(f"ssd_scan: {label}: B={b} L={l} H={h} P={p} N={n} G={g} chunk={chunk} "
+            f"{str(bm.dtype)[6:]} B/C, token stride {bm.stride(1)}")
         ys, hs = float(yr.abs().max()), float(hr.abs().max())
         dy, dh = float((y - yr).abs().max()), float((hf - hr).abs().max())
         worst = max(worst, dy, dh)
@@ -432,27 +586,60 @@ def ssd_scan_phase(torch, dev, gen) -> list[dict]:
         # multiply-adds, y's sum order) stays within 1e-5 of the scale.
         check(dy <= 1e-5 * ys and dh <= 1e-5 * hs,
               f"ssd_scan {label} vs ssd_scan_ref: |dy| {dy:.3g}, |dh| {dh:.3g} "
-              "<= 1e-5 of max|y|, max|h|")
+              f"<= 1e-5 of max|y| {ys:.3g}, max|h| {hs:.3g}")
         # The chunked form sums exp(cumsum) decays in (chunk x chunk) blocks.
         dyc, dhc = float((y - yc).abs().max()), float((hf - hc).abs().max())
         check(dyc <= 1e-4 * ys and dhc <= 1e-4 * hs,
               f"ssd_scan {label} vs ssd_chunked: |dy| {dyc:.3g}, |dh| {dhc:.3g} "
               "<= 1e-4 of max|y|, max|h|")
+    # A layout whose block outgrows the SM's shared memory raises.
+    try:
+        ssd_scan_cuda(*ssd_inputs(torch, dev, gen, 1, 64, 1, 256, 128, 1, f32))
+    except RuntimeError as e:
+        check("cudaError 1" in str(e), "ssd_scan P=256, N=128, fp32 B/C (over 227 KB "
+              "of shared memory) raises")
+    else:
+        check(False, "ssd_scan P=256, N=128, fp32 B/C raises")
     # Time at Zamba2-1.2B's admission shape, four input sets (90 MB) in turn.
     b, l, h, p, n, g, chunk = 8, 128, 64, 64, 64, 1, 64
     sets = [ssd_inputs(torch, dev, gen, b, l, h, p, n, g) for _ in range(4)]
     chunked_ms, _ = device_ms(rotating(
         lambda *t: ssd_chunked(*t, chunk), sets))
     log(f"  ssd_chunked (the model's plain prefill scan) {chunked_ms:.4f} ms")
+    # Mamba2-130M's admission shape.
+    msets = [ssd_inputs(torch, dev, gen, 8, l, 24, p, 128, 1) for _ in range(4)]
+    m_ms, _ = device_ms(rotating(lambda *t: ssd_scan_cuda(*t, chunk=chunk), msets),
+                        "ssd_scan_kernel")
+    m_bound, m_by = bound(scan_bytes(8, l, 24, p, 128, 1), 0,
+                          scan_tc_flops(8, l, 24, p, 128, chunk))
+    log(f"  ssd_scan at Mamba2-130M's shape (H=24, N=128): {m_ms:.4f} ms on the "
+        f"device, bound {m_bound:.5f} ms ({m_by})")
     return [kernel_row(
         "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:98", worst,
         rotating(lambda *t: ssd_scan_cuda(*t, chunk=chunk), sets), "ssd_scan_kernel",
         rotating(ref.ssd_scan_ref, sets),
-        nbytes=2 * b * l * h * p * 4 + b * l * h * 4 + 2 * b * l * g * n * 2
-        + b * h * p * n * 4,
-        flops=5 * b * l * h * p * n, chunked_ms=chunked_ms,
+        nbytes=scan_bytes(b, l, h, p, n, g), flops=0,
+        tc_flops=scan_tc_flops(b, l, h, p, n, chunk), chunked_ms=chunked_ms,
+        mamba2_130m_ms=m_ms, mamba2_130m_bound_ms=m_bound,
         shape=f"B={b} L={l} H={h} P={p} N={n} G={g} chunk={chunk}")]
+
+
+def scan_bytes(b, l, h, p, n, g):
+    """x in and y out (fp32), a, bf16 B and C, the final state out."""
+    return 2 * b * l * h * p * 4 + b * l * h * 4 + 2 * b * l * g * n * 2 + b * h * p * n * 4
+
+
+def scan_tc_flops(b, l, h, p, n, chunk):
+    """TF32 tensor-core operations of the chunked form with bf16 B and C:
+    per chunk and head C B^T once (exact operands), (S o decay) X in
+    3xTF32, the state update (decay on X) in two products, C h_prev^T in
+    two (none before the first chunk, where h_prev = 0)."""
+    nc = -(-l // chunk)
+    mm = 2 * chunk * chunk
+    per_head = nc * (mm * n * 1 + mm * p * 3 + 2 * chunk * p * n * 2) \
+        + (nc - 1) * 2 * chunk * n * p * 2
+    return b * h * per_head
 
 
 # ---------------------------------------------------------------- phase 4

@@ -9,7 +9,9 @@ Replaces ``repro/kernels/ssd_scan.py``'s two Pallas kernels:
     their write), so each live row is read and written once;
   * :func:`ssd_scan_cuda` — ``ssd_scan_pallas``, the scan of a whole
     prompt from a zero state, with B and C taken per group
-    (``(B, L, G, N)``, ``rep = H / G``) as the model produces them.
+    (``(B, L, G, N)``, ``rep = H / G``) as the model produces them.  Like
+    the TPU kernel it computes the chunked form, 64-token chunks as
+    tensor-core products (3xTF32 where an operand is not exact in TF32).
 
 The kernels are ``csrc/ssd_scan.cu`` (CUDA C++, sm_90a, plain C
 interface); its source note says what bounds each on the H100 and how
@@ -31,9 +33,12 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["ssd_scan_cuda", "ssd_update_cuda"]
+__all__ = ["SCAN_CHUNK", "ssd_scan_cuda", "ssd_update_cuda"]
 
 _SCAN_N = (16, 32, 64, 128)
+#: The one chunk length the scan kernel computes (both full configs'
+#: ``ssm_chunk``).
+SCAN_CHUNK = 64
 _ARGTYPES = {
     "ssd_update": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
@@ -125,7 +130,7 @@ def ssd_scan_cuda(x, a, b_mat, c_mat, *, chunk: int = 64
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the scan from a zero state.  x (B, L, H, P), a (B, L, H)
     fp32 contiguous; b_mat, c_mat (B, L, G, N) fp32 or bf16; ``chunk``
-    steps of inputs are staged in shared memory at a time.  Returns
+    must be :data:`SCAN_CHUNK` (the kernel's chunked form).  Returns
     (y (B, L, H, P) fp32, final state (B, H, P, N) fp32), enqueued on the
     current stream."""
     dev = x.device
@@ -139,10 +144,9 @@ def ssd_scan_cuda(x, a, b_mat, c_mat, *, chunk: int = 64
         raise ValueError(f"unsupported SSD layout H={h}, P={p}, N={n}, G={g} "
                          f"(N in {_SCAN_N}, P a multiple of 8 up to 256, "
                          "G divides H)")
-    smem = 4 * chunk * (1 + 2 * p + 2 * n)
-    if chunk < 1 or smem > 227 * 1024:
-        raise ValueError(f"chunk {chunk} needs {smem} B of shared memory "
-                         "(at most 227 KB)")
+    if chunk != SCAN_CHUNK:
+        raise ValueError(f"the ssd_scan kernel computes chunks of {SCAN_CHUNK} "
+                         f"tokens, got chunk={chunk}")
     _f32("x", x, (bsz, l, h, p), dev)
     _f32("a", a, (bsz, l, h), dev)
     sbc = _token_stride("b_mat", b_mat, (bsz, l), g, n, dev)
@@ -158,5 +162,7 @@ def ssd_scan_cuda(x, a, b_mat, c_mat, *, chunk: int = 64
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err} "
+                           "(1: a layout whose block needs over 227 KB of "
+                           "shared memory)")
     return y, h_out

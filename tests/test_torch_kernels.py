@@ -4,7 +4,9 @@ The port's plain versions (``repro_torch.kernels.ref``, which its dispatch
 wrappers run for CPU tensors) are held against the reference's jnp oracles
 (``repro.kernels.ref``) and its Pallas kernels in interpret mode, on the
 same inputs made with numpy.  The Hopper kernels themselves run only on
-the card (``chip_smoke.py`` holds them against these plain versions).
+the card (``chip_smoke.py`` holds them against these plain versions);
+the flash_decode kernel's split-and-merge algorithm is emulated here with
+the launcher's own split plan.
 
 Tolerances:
   * entropy |dH| <= 1e-5: both sides are fp32 log-softmax sums (or the
@@ -15,6 +17,8 @@ Tolerances:
     (at most 2^-7 relative) plus 1e-5, since each side rounds its fp32
     result once.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +33,7 @@ from repro.kernels.entropy_exit import (
 from repro.kernels.flash_decode import flash_decode_pallas
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_decode import SPLIT, split_plan
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 
@@ -220,3 +225,121 @@ class TestDispatch:
             assert src.is_file()
             assert 'extern "C"' in src.read_text()
         assert build._loaded == {}
+
+
+# ------------------------------------------------- the kernel's split plan
+def _split_merge(q, k, v, k_pos, q_pos, rows, window=0):
+    """Test-side emulation of the Hopper kernel's algorithm, in fp32: the
+    cache's C slots in the launcher's fixed splits, a partial (m, l, acc)
+    over each split's valid slots only (an empty partial where it has
+    none), the partials merged in split order, and a row whose splits are
+    all empty averaging V uniformly over all C slots."""
+    b, h, d = q.shape
+    bc, c, kh, _ = k.shape
+    g = h // kh
+    split, splits = split_plan(c)
+    r = rows.long().clamp(0, bc - 1)
+    kk, vv, kp = k[r].float(), v[r].float(), k_pos[r]
+    qp = q_pos[:, None]
+    valid = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        valid &= qp - kp < window
+    qf = q.float().reshape(b, kh, g, d) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bkgd,bckd->bkgc", qf, kk)
+    parts = []
+    for sp in range(splits):
+        lo, hi = sp * split, min(c, (sp + 1) * split)
+        ok = valid[:, None, None, lo:hi]
+        m = torch.where(ok, s[..., lo:hi], -math.inf).amax(-1)  # -inf: empty
+        w = torch.where(ok, torch.exp(s[..., lo:hi] - m[..., None]), 0.0)
+        parts.append((m, w.sum(-1), torch.einsum("bkgc,bckd->bkgd", w, vv[:, lo:hi])))
+    mm = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:  # split order; an empty split adds nothing
+        f = torch.where(l > 0, torch.exp(m - mm), 0.0)
+        den = den + l * f
+        num = num + acc * f[..., None]
+    empty = den == 0
+    uniform = vv.mean(dim=1)[:, :, None, :].expand_as(num)
+    out = torch.where(empty[..., None], uniform, num / den.clamp(min=1e-30)[..., None])
+    return out.reshape(b, h, d)
+
+
+def _split_case(kind, seed):
+    """(q, k, v, k_pos, q_pos, rows, window) numpy inputs of one case."""
+    rng = np.random.default_rng(seed)
+    b, bc, c, kh, g, d, window = {
+        "short": (4, 4, 2048, 2, 1, 32, 0),
+        "straddle": (4, 4, 2048, 2, 1, 32, 0),
+        "masked": (4, 4, 1024, 2, 1, 32, 0),
+        "wrapped": (3, 4, 1100, 2, 1, 32, 0),
+        "window": (3, 4, 1100, 2, 2, 32, 300),
+        "sentinel": (4, 5, 1024, 2, 1, 64, 0),
+        "b1": (1, 3, 1500, 2, 1, 32, 0),
+    }[kind]
+    q = rng.standard_normal((b, kh * g, d)).astype(np.float32)
+    k = rng.standard_normal((bc, c, kh, d)).astype(np.float32)
+    v = rng.standard_normal((bc, c, kh, d)).astype(np.float32)
+    rows = rng.permutation(bc)[:b].astype(np.int32)
+    slots = np.arange(c, dtype=np.int32)
+    if kind in ("wrapped", "window"):
+        # Ring after more than one lap: slot s holds the newest position
+        # congruent to s, all at or before the row's q_pos.
+        q_row = rng.integers(c + 50, 3 * c, bc).astype(np.int32)
+        k_pos = (q_row[:, None] - (q_row[:, None] - slots) % c).astype(np.int32)
+    else:
+        # Short valid ranges in a long cache: positions 0..q_pos, -1 beyond.
+        q_row = rng.integers(20, 60, bc).astype(np.int32)
+        if kind == "straddle":  # valid ranges across a split boundary
+            q_row += SPLIT - 40
+        if kind == "b1":
+            q_row[:] = c - 1
+        k_pos = np.where(slots <= q_row[:, None], slots, -1).astype(np.int32)
+        k_pos[rng.random((bc, c)) < 0.1] = -1  # holes
+    q_pos = q_row[np.minimum(rows, bc - 1)].copy()
+    if kind == "masked":
+        k_pos[rows[1]] = -1  # one fully masked row
+    if kind == "sentinel":
+        rows[-1] = bc  # the compacted runtime's out-of-bounds sentinel
+    return q, k, v, k_pos, q_pos, rows, window
+
+
+SPLIT_KINDS = ["short", "straddle", "masked", "wrapped", "window", "sentinel", "b1"]
+
+
+class TestFlashDecodeSplit:
+    """The kernel's split-and-merge algorithm, emulated here with the
+    launcher's own split plan, against the reference oracle and the Pallas
+    kernel (the kernel itself runs only on the card)."""
+
+    def test_plan_depends_on_c_only(self):
+        assert split_plan(4096) == (SPLIT, 8)
+        assert split_plan(1) == (SPLIT, 1)
+        assert split_plan(SPLIT + 1) == (SPLIT, 2)
+
+    @pytest.mark.parametrize("kind", SPLIT_KINDS)
+    def test_emulation_matches_reference_fp32(self, kind):
+        q, k, v, kp, qp, rows, window = _split_case(kind, seed=len(kind))
+        want = tref.flash_decode_ref(*map(torch.from_numpy, (q, k, v, kp, qp, rows)),
+                                     window=window)
+        got = _split_merge(*map(torch.from_numpy, (q, k, v, kp, qp, rows)), window)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+        jwant = jref.flash_decode_ref(*map(jnp.asarray, (q, k, v, kp, qp, rows)),
+                                      window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("kind", SPLIT_KINDS)
+    def test_emulation_matches_pallas_bf16(self, kind):
+        q, k, v, kp, qp, rows, window = _split_case(kind, seed=7 * len(kind))
+        (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+        c = k.shape[1]
+        block_c = next(bl for bl in (256, 100, 300) if c % bl == 0)
+        # The Pallas kernel is given the clamped rows the reference gathers.
+        jrows = np.minimum(rows, k.shape[0] - 1)
+        want = np.asarray(flash_decode_pallas(
+            jq, jk, jv, jnp.asarray(kp), jnp.asarray(qp), jnp.asarray(jrows),
+            window=window, block_c=block_c, interpret=True).astype(jnp.float32))
+        got = _split_merge(tq, tk, tv, torch.from_numpy(kp), torch.from_numpy(qp),
+                           torch.from_numpy(rows), window).bfloat16().float().numpy()
+        assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-5)

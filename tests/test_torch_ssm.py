@@ -25,6 +25,7 @@ Tolerances (all fp32):
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -188,6 +189,117 @@ class TestSSDScan:
             x, a, np.repeat(bm, h // g, 2), np.repeat(cm, h // g, 2), h0)))
         np.testing.assert_allclose(yh.numpy(), np.asarray(yj), **SSD_TOL)
         np.testing.assert_allclose(hh.numpy(), np.asarray(hj), **SSD_TOL)
+
+
+# ------------------------------------------- the scan kernel's 3xTF32 plan
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest TF32 value (ties away from zero) as the kernel
+    does: add half a TF32 ulp to the bits, then mask the low 13 mantissa
+    bits off."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """a @ b as the kernel's tensor-core products: with ``split`` the
+    3xTF32 form lo*hi + hi*lo + hi*hi (hi the TF32 of the value, lo the
+    TF32 of the exact remainder; an operand exact in TF32, as bf16 B and C
+    are, has lo = 0), else one TF32 product.  fp32 accumulation."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _chunked_tf32(x, a, bm, cm, split=True, chunk=64):
+    """Test-side emulation of the scan kernel: the chunked SSD form of
+    ``ssd_scan_pallas`` over 64-token chunks, zero padded, with every
+    product taken through :func:`_mm_tf32`."""
+    bsz, l, h, p = x.shape
+    g, n = bm.shape[2:]
+    pad = (-l) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        bm = torch.nn.functional.pad(bm, (0, 0, 0, 0, 0, pad))
+        cm = torch.nn.functional.pad(cm, (0, 0, 0, 0, 0, pad))
+    xs, av = x.permute(0, 2, 1, 3), a.permute(0, 2, 1)  # (B, H, L, P), (B, H, L)
+    bh = bm.float().repeat_interleave(h // g, 2).permute(0, 2, 1, 3)
+    ch = cm.float().repeat_interleave(h // g, 2).permute(0, 2, 1, 3)
+    state = torch.zeros((bsz, h, p, n))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for t0 in range(0, l + pad, chunk):
+        xc, ac = xs[:, :, t0:t0 + chunk], av[:, :, t0:t0 + chunk]
+        bc, cc = bh[:, :, t0:t0 + chunk], ch[:, :, t0:t0 + chunk]
+        a_cum = torch.cumsum(ac, -1)
+        decay = torch.exp(torch.where(tri, a_cum[..., :, None] - a_cum[..., None, :], -math.inf))
+        m = _mm_tf32(cc, bc.transpose(-1, -2), split) * decay
+        y = _mm_tf32(m, xc, split) + torch.exp(a_cum)[..., None] * _mm_tf32(
+            cc, state.transpose(-1, -2), split)
+        to_end = torch.exp(a_cum[..., -1:] - a_cum)
+        state = torch.exp(a_cum[..., -1])[..., None, None] * state + _mm_tf32(
+            (to_end[..., None] * xc).transpose(-1, -2), bc, split)
+        ys.append(y)
+    return torch.cat(ys, 2)[:, :, :l].permute(0, 2, 1, 3).contiguous(), state
+
+
+def _chip_scan_inputs(b, l, h, p, n, g, seed, bf16_bc=True):
+    """The chip check's input distribution: dt in [1e-3, 0.101], A in
+    [1, 16], x = N(0, 1) dt, a = -dt A, B and C 0.5 N(0, 1) (bf16 values,
+    as the model hands them over, unless ``bf16_bc`` is False)."""
+    rng = np.random.default_rng(seed)
+    dt = rng.random((b, l, h)).astype(np.float32) * 0.1 + 1e-3
+    a_log = rng.random(h).astype(np.float32) * np.float32(math.log(16.0))
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32) * dt[..., None]
+    a = (-dt * np.exp(a_log)).astype(np.float32)
+    bc = torch.from_numpy((rng.standard_normal((2, b, l, g, n)) * 0.5).astype(np.float32))
+    if bf16_bc:
+        bc = bc.bfloat16().float()
+    return _t(x), _t(a), bc[0].contiguous(), bc[1].contiguous()
+
+
+TF32_CASES = [
+    # b, l, h, p, n, g, bf16 B/C
+    (2, 128, 4, 64, 64, 1, True),  # Zamba2-1.2B head shape
+    (2, 100, 4, 64, 64, 1, True),  # ragged L
+    (2, 128, 3, 64, 128, 1, True),  # Mamba2-130M head shape
+    (2, 128, 4, 64, 64, 2, True),  # G = 2
+    (1, 128, 2, 64, 64, 1, False),  # fp32 B/C: 3x products everywhere
+]
+
+
+class TestSSDScanTF32Plan:
+    """The scan kernel's chunked form with 3xTF32 products, emulated here,
+    held at the chip check's tolerances: 1e-5 of max|y| and max|h| against
+    the sequential ``ssd_scan_ref``, 1e-4 against the chunked Pallas kernel
+    (a different fp32 summation order of the same chunked algebra)."""
+
+    @pytest.mark.parametrize("b,l,h,p,n,g,bf16_bc", TF32_CASES)
+    def test_3xtf32_meets_chip_tolerances(self, b, l, h, p, n, g, bf16_bc):
+        x, a, bm, cm = _chip_scan_inputs(b, l, h, p, n, g, seed=l + n + g,
+                                         bf16_bc=bf16_bc)
+        y, hf = _chunked_tf32(x, a, bm, cm)
+        yr, hr = tref.ssd_scan_ref(x, a, bm, cm)
+        ys, hs = float(yr.abs().max()), float(hr.abs().max())
+        assert float((y - yr).abs().max()) <= 1e-5 * ys
+        assert float((hf - hr).abs().max()) <= 1e-5 * hs
+        rep = h // g
+        yk, hk = ssd_scan_pallas(*map(jnp.asarray, (
+            x.numpy(), a.numpy(), np.repeat(bm.numpy(), rep, 2),
+            np.repeat(cm.numpy(), rep, 2))), chunk=64, interpret=True)
+        assert float(np.abs(y.numpy() - np.asarray(yk)).max()) <= 1e-4 * ys
+        assert float(np.abs(hf.numpy() - np.asarray(hk)).max()) <= 1e-4 * hs
+
+    def test_single_tf32_misses_them(self):
+        """One TF32 product per operand pair keeps ~11 bits: the same
+        inputs miss the 1e-5 bound by orders of magnitude, so the split is
+        required."""
+        x, a, bm, cm = _chip_scan_inputs(2, 128, 4, 64, 64, 1, seed=193)
+        y, hf = _chunked_tf32(x, a, bm, cm, split=False)
+        yr, hr = tref.ssd_scan_ref(x, a, bm, cm)
+        assert float((y - yr).abs().max()) > 10 * 1e-5 * float(yr.abs().max())
+        assert float((hf - hr).abs().max()) > 10 * 1e-5 * float(hr.abs().max())
+
 
 
 class TestEntropyExit:
