@@ -12,7 +12,9 @@ exit) if any phase fails:
      ``build/kernels``;
   3. kernels — each Hopper kernel against its plain PyTorch version at the
      main paths' shapes, with the tolerance stated beside each check, and
-     its time (``torch.profiler`` device time, mean of 30 calls), the plain
+     its time (``torch.profiler`` device time per call, three windows of
+     30 calls that must hold whole event counts and agree, and may not
+     read below the bound), the plain
      version's time, the time of one PyTorch library call computing the
      same function where one exists, and its bound (the largest of bytes /
      3.35 TB/s, fp32 operations / 67 TFLOP/s and TF32 tensor-core
@@ -23,6 +25,11 @@ exit) if any phase fails:
      its wrapper accepts (G, even D, K/V aligned or not), and each row of
      the serving batch must equal, bit for bit, the same row computed
      alone; ssd_scan also with fp32 B, C and misaligned token strides;
+     the exit kernel at both load widths its launcher picks (16-byte and
+     scalar: V = 5003, 5002, logits 2 and 4 bytes off 16-byte alignment,
+     bitwise equal to the aligned launch), with splits of pad lanes only and empty splits,
+     each K=2 head slice equal to its K=1 launch and each row to the row
+     alone, bit for bit;
   4. end to end — three paths, each a ``PartitionedServer`` at full
      published width and depth with random weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
@@ -141,29 +148,54 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+WINDOW_SPREAD = 1.5  # largest / smallest whole window a kernel may show
+
+
 def device_ms(fn, match: str | None = None, iters: int = 30):
     """Device time of one call from ``torch.profiler``: the device events
     (kernels, copies, fills) whose name contains ``match`` (None: all of
-    them) over ``iters`` calls, divided by ``iters``.  Falls back to
+    them) over ``iters`` calls, divided by ``iters``, in three profiled
+    windows.  With ``match`` (a kernel's own events) each window must hold
+    the same whole number of events per call: a window with fewer has lost
+    events in the profiler, is logged with its count and left out, and the
+    run fails unless two windows are whole and agree within WINDOW_SPREAD.
+    Without ``match`` (a plain version or a library call: all device
+    events) it takes the median window.  Returns (ms, source); falls back to
     :func:`time_ms` (CUDA events, which include host launch gaps) when the
-    profiler records no device time.  Returns (ms, source)."""
+    profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and (match is None or match in e.name)
-    )
-    if total_us <= 0:
+    windows = []  # (events, ms per call)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (match is None or match in e.name)]
+        windows.append((len(ev), sum(ev) / iters / 1e3))
+    if max(ms for _, ms in windows) <= 0:
         return time_ms(fn, iters), "cuda-events"
-    return total_us / iters / 1e3, "profiler"
+    if match is None:
+        return statistics.median(ms for _, ms in windows), "profiler"
+    full = max(n for n, _ in windows)
+    whole = [ms for n, ms in windows if n == full]
+    for i, (n, ms) in enumerate(windows):
+        if n != full:
+            log(f"  profiler window {i} of {match!r} kept {n} of {full} device "
+                f"events ({ms:.5f} ms per call): left out")
+    check(full % iters == 0 and len(whole) >= 2,
+          f"{match}: {len(whole)} of 3 profiler windows whole "
+          f"({[n for n, _ in windows]} events for {iters} calls)")
+    check(max(whole) <= WINDOW_SPREAD * min(whole),
+          f"{match}: whole profiler windows agree within {WINDOW_SPREAD}x "
+          f"({', '.join(f'{ms:.5f}' for ms in whole)} ms per call)")
+    src = "profiler" if len(whole) == 3 else f"profiler, {3 - len(whole)} window left out"
+    return statistics.mean(whole), src
 
 
 def check(cond: bool, what: str) -> None:
@@ -187,6 +219,8 @@ def kernel_row(name, source, replaces, err, call, match, plain, nbytes, flops,
     wall = time_ms(call)
     plain_ms, _ = device_ms(plain)
     bound_ms, by = bound(nbytes, flops, tc_flops)
+    check(ms >= bound_ms, f"{name}: device time {ms:.5f} ms is not below its "
+          f"bound {bound_ms:.5f} ms (a reading below it is a measurement fault)")
     log(f"  {name}: kernel {ms:.4f} ms on the device ({src}; {wall:.4f} ms "
         f"between CUDA events with launch overhead), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({by})")
@@ -202,38 +236,113 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
     from repro_torch.kernels.entropy_exit import (
         entropy_exit_argmax_heads_cuda,
         entropy_exit_cuda,
+        load_width,
+        split_plan,
     )
 
+    widths = set()
+
+    def compare(label, lg, th, argmax=True):
+        """Kernel against the plain version: H within 1e-5 (fp32 sums in
+        another order than log_softmax), tokens exact with ties to the
+        first index, flags exact where |H - thr| >= 1e-5.  Returns (max
+        |dH|, the kernel's outputs)."""
+        widths.add(load_width(lg))
+        if argmax:
+            out = entropy_exit_argmax_heads_cuda(lg, th)
+            want = ref.entropy_exit_argmax_heads_ref(lg, th)
+        else:
+            out = entropy_exit_cuda(lg, th)
+            want = ref.entropy_exit_ref(lg, th)
+        torch.cuda.synchronize()
+        h, flag, hr, flr = out[0], out[1], want[0], want[1]
+        err = float((h - hr).abs().max())
+        thv = torch.as_tensor(th, device=dev).reshape(-1, *[1] * (hr.dim() - 1)).expand_as(hr)
+        clear = (hr - thv).abs() >= 1e-5
+        check(err <= 1e-5, f"{label} (V={lg.shape[-1]}, {load_width(lg)}-element "
+              f"loads): |dH| = {err:.3g} <= 1e-5 (fp32 split sums vs the plain softmax)")
+        if argmax:
+            check(bool(torch.equal(out[2], want[2])),
+                  f"{label}: tokens exact, ties to the first index")
+        check(bool(torch.equal(flag[clear], flr[clear])),
+              f"{label}: flags exact where |H - thr| >= 1e-5 "
+              f"({int((~clear).sum())} rows at the edge)")
+        return err, out
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
     k, b, v = 2, 8, 32064
+    split, splits = split_plan(v)
+    log(f"entropy_exit: each row of V={v} in {splits} splits of {split} "
+        "(one cluster of 8 blocks per row; the plan depends on V only)")
     logits = (torch.randn((k, b, v), generator=gen, device=dev) * 4).to(torch.bfloat16)
     logits[0, 0, -64:] = -1e30  # pad lanes inside the width
     logits[1, 1, 100] = logits[1, 1, 30000] = 40.0  # tie across the row
-    logits[0, 2, 7] = logits[0, 2, 9] = 40.0  # tie inside one tile
+    logits[0, 2, 7] = logits[0, 2, 9] = 40.0  # tie inside one group
+    logits[1, 3, split - 1] = logits[1, 3, split] = 40.0  # tie across a split edge
     h_ref0, _, _ = ref.entropy_exit_argmax_heads_ref(logits, 0.5)
     thr = h_ref0.median(dim=1).values.float()  # per-head (K,): mixed flags
-    rows = []
-    for name, lg, th, replaces in (
+    main_cases = (
         ("entropy_exit_argmax_heads", logits, thr,
          "src/repro/kernels/entropy_exit.py:296"),
         ("entropy_exit_argmax", logits[:1], float(thr[0]),
          "src/repro/kernels/entropy_exit.py:191"),
-    ):
-        h, flag, tok = entropy_exit_argmax_heads_cuda(lg, th)
-        hr, flr, tokr = ref.entropy_exit_argmax_heads_ref(lg, th)
-        torch.cuda.synchronize()
-        err = float((h - hr).abs().max())
-        thv = torch.as_tensor(th, device=dev).reshape(-1, 1).expand_as(hr)
-        clear = (hr - thv).abs() >= 1e-5
+    )
+    errs = {}
+    for name, lg, th, _ in main_cases:
         log(f"{name}: K={lg.shape[0]} B={b} V={v} bf16")
-        check(err <= 1e-5, f"{name} entropy |dH| = {err:.3g} <= 1e-5 "
-              "(fp32 online sums vs log_softmax)")
-        check(bool(torch.equal(tok, tokr)), f"{name} tokens exact, ties to the first index")
-        check(bool(torch.equal(flag[clear], flr[clear])),
-              f"{name} flags exact where |H - thr| >= 1e-5 "
-              f"({int((~clear).sum())} rows at the edge)")
+        errs[name], _ = compare(name, lg, th)
+    # Bitwise invariants of the split plan: each head's slice of the K=2
+    # launch equals its K=1 launch, and each row of the batch equals the
+    # row launched alone.
+    whole = entropy_exit_argmax_heads_cuda(logits, thr)
+    heads_ok = all(same([o[kk] for o in whole],
+                        [o[0] for o in entropy_exit_argmax_heads_cuda(
+                            logits[kk:kk + 1], thr[kk:kk + 1])]) for kk in range(k))
+    rows_ok = all(same([o[kk, i] for o in whole],
+                       [o[0, 0] for o in entropy_exit_argmax_heads_cuda(
+                           logits[kk, i:i + 1][None], thr[kk:kk + 1])])
+                  for kk in range(k) for i in range(b))
+    torch.cuda.synchronize()
+    check(heads_ok, "entropy_exit_argmax_heads: each K=2 head slice bitwise equal "
+          "to its K=1 launch")
+    check(rows_ok, f"entropy_exit_argmax_heads: each of the {k * b} rows bitwise "
+          "equal to the row launched alone")
+    # Both instantiations the launcher can pick, each against the plain
+    # version; the scalar loads do the same arithmetic, so at V=32064 they
+    # must give the 16-byte loads' bits.  These cases draw from their own
+    # generator, so the later phases see the inputs they always did.
+    own = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = max(errs.values())
+    for off in (1, 2):
+        lg = offset_copy(torch, logits, off)
+        label = f"entropy_exit_argmax_heads, logits {2 * off} bytes off 16-byte alignment"
+        e, out = compare(label, lg, thr)
+        check(load_width(lg) == 1 and same(out, whole),
+              f"{label}: scalar loads, bitwise equal to the aligned launch")
+        worst = max(worst, e)
+    for label, kk, bb, vv, pad in (
+        ("V=5003 (odd width)", 1, b, 5003, 0),
+        ("V=5002 (even, not a multiple of 8)", 2, b, 5002, 0),
+        ("V=8192, last 2048 lanes -1e30 (splits 6 and 7 all pad)", 2, b, 8192, 2048),
+        ("V=40 (splits 5..7 empty)", 2, 3, 40, 0),
+    ):
+        lg = (torch.randn((kk, bb, vv), generator=own, device=dev) * 4).to(torch.bfloat16)
+        if pad:
+            lg[..., -pad:] = -1e30
+        if vv == 40:
+            lg[1, 1, 9] = lg[1, 1, 12] = 40.0  # a tie inside one split
+        th = ref.entropy_exit_argmax_heads_ref(lg, 0.5)[0].median(dim=1).values.float()
+        e, _ = compare(f"entropy_exit_argmax_heads {label}", lg, th)
+        worst = max(worst, e)
+    check(widths == {1, 8}, f"every load width the launcher picks ran: {sorted(widths)}")
+    errs["entropy_exit_argmax_heads"] = worst
+    rows = []
+    for name, lg, th, replaces in main_cases:
         n = lg.numel()
         rows.append(kernel_row(
-            name, "src/repro_torch/kernels/csrc/entropy_exit.cu", replaces, err,
+            name, "src/repro_torch/kernels/csrc/entropy_exit.cu", replaces, errs[name],
             lambda lg=lg, th=th: entropy_exit_argmax_heads_cuda(lg, th),
             "entropy_exit_argmax_kernel",
             lambda lg=lg, th=th: ref.entropy_exit_argmax_heads_ref(lg, th),
@@ -247,18 +356,14 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
         lg = (torch.randn((b, v2), generator=gen, device=dev) * 4).to(torch.bfloat16)
         if pad:
             lg[:, -pad:] = -1e30
-        hr, _ = ref.entropy_exit_ref(lg, 0.5)
-        th = float(hr.median())
-        h, flag = entropy_exit_cuda(lg, th)
-        hr, flr = ref.entropy_exit_ref(lg, th)
-        torch.cuda.synchronize()
-        err = float((h - hr).abs().max())
-        worst = max(worst, err)
-        clear = (hr - th).abs() >= 1e-5
+        th = float(ref.entropy_exit_ref(lg, 0.5)[0].median())
         log(f"entropy_exit: B={b} V={v2} bf16, {pad} pad lanes")
-        check(err <= 1e-5, f"entropy_exit V={v2} |dH| = {err:.3g} <= 1e-5")
-        check(bool(torch.equal(flag[clear], flr[clear])),
-              f"entropy_exit V={v2} flags exact where |H - thr| >= 1e-5")
+        e, out = compare(f"entropy_exit V={v2}", lg, th, argmax=False)
+        worst = max(worst, e)
+    alone = [entropy_exit_cuda(lg[i:i + 1], th) for i in range(b)]
+    torch.cuda.synchronize()
+    check(all(same([o[i:i + 1] for o in out], a) for i, a in enumerate(alone)),
+          f"entropy_exit V={lg.shape[1]}: each row bitwise equal to the row alone")
     rows.append(kernel_row(
         "entropy_exit", "src/repro_torch/kernels/csrc/entropy_exit.cu",
         "src/repro/kernels/entropy_exit.py:90", worst,

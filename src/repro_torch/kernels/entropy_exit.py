@@ -6,10 +6,16 @@ and, as its K = 1 launch, ``entropy_exit_argmax_pallas``; the same kernel
 with the argmax compiled out replaces ``entropy_exit_pallas``
 (:func:`entropy_exit_cuda`).  The kernel is
 ``csrc/entropy_exit.cu`` (CUDA C++, sm_90a, plain C interface); its source
-note says what bounds it on the H100 and how the design answers that.  The
-plain PyTorch version is :func:`repro_torch.kernels.ref.
-entropy_exit_argmax_heads_ref`; :mod:`repro_torch.kernels.ops` dispatches
-between the two by the device of the logits and counts launches.
+note says what bounds it on the H100 and how the design answers that:
+each row's V is cut into :func:`split_plan`'s ``SPLITS`` splits, one block
+of a thread-block cluster each, merged inside the cluster in one launch;
+the launchers pass the plan's split to the C entry point, which has no
+copy of it.  The C entry point picks the load width (:func:`load_width`)
+from V and the logits' address; both widths give the same bits.  The
+plain PyTorch version is
+:func:`repro_torch.kernels.ref.entropy_exit_argmax_heads_ref`;
+:mod:`repro_torch.kernels.ops` dispatches between the two by the device of
+the logits and counts launches.
 """
 
 from __future__ import annotations
@@ -21,13 +27,25 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["entropy_exit_argmax_heads_cuda", "entropy_exit_cuda"]
+__all__ = [
+    "SPLITS",
+    "entropy_exit_argmax_heads_cuda",
+    "entropy_exit_cuda",
+    "load_width",
+    "split_plan",
+]
+
+#: Blocks per cluster = splits per row (``kSplits`` in the source).
+SPLITS = 8
+#: Elements per 16-byte group; a split is a whole number of groups.
+_GROUP = 8
 
 _ARGTYPES = {
-    "entropy_exit_argmax_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    "entropy_exit_argmax_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p],
-    "entropy_exit_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "entropy_exit_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p],
+    "entropy_exit_load_width": [ctypes.c_void_p, ctypes.c_int],
 }
 _fns: dict = {}
 
@@ -40,6 +58,22 @@ def _fn(name: str):
         f.restype = ctypes.c_int
         _fns[name] = f
     return f
+
+
+def split_plan(v: int) -> tuple[int, int]:
+    """(elements per split, number of splits) of a row of width ``v``:
+    ceil(v / SPLITS) rounded up to whole groups.  It depends on ``v`` only,
+    so a row's result does not depend on K, B or the data; splits past the
+    row's end are empty.  The launchers pass the split to the kernel."""
+    per = -(-v // SPLITS)
+    return -(-per // _GROUP) * _GROUP, SPLITS
+
+
+def load_width(logits: torch.Tensor) -> int:
+    """Elements per load of the instantiation the C entry point picks for
+    these CUDA logits, asked of the kernel's library: 8 (16-byte loads)
+    when V % 8 == 0 and the logits are 16-byte aligned, else 1 (scalars)."""
+    return _fn("entropy_exit_load_width")(logits.data_ptr(), logits.shape[-1])
 
 
 def _thresholds(thresholds, k: int, device) -> torch.Tensor:
@@ -73,7 +107,7 @@ def entropy_exit_cuda(logits: torch.Tensor, threshold
     flag = torch.empty((b,), dtype=torch.bool, device=logits.device)
     err = _fn("entropy_exit_bf16")(
         logits.data_ptr(), th.data_ptr(), h.data_ptr(), flag.data_ptr(),
-        1, b, v, float(math.log(v)),
+        1, b, v, split_plan(v)[0], float(math.log(v)),
         torch.cuda.current_stream(logits.device).cuda_stream,
     )
     if err != 0:
@@ -95,7 +129,7 @@ def entropy_exit_argmax_heads_cuda(
     idx = torch.empty((k, b), dtype=torch.int32, device=logits.device)
     err = _fn("entropy_exit_argmax_bf16")(
         logits.data_ptr(), th.data_ptr(), h.data_ptr(), flag.data_ptr(),
-        idx.data_ptr(), k, b, v, float(math.log(v)),
+        idx.data_ptr(), k, b, v, split_plan(v)[0], float(math.log(v)),
         torch.cuda.current_stream(logits.device).cuda_stream,
     )
     if err != 0:

@@ -5,8 +5,8 @@ wrappers run for CPU tensors) are held against the reference's jnp oracles
 (``repro.kernels.ref``) and its Pallas kernels in interpret mode, on the
 same inputs made with numpy.  The Hopper kernels themselves run only on
 the card (``chip_smoke.py`` holds them against these plain versions);
-the flash_decode kernel's split-and-merge algorithm is emulated here with
-the launcher's own split plan.
+the flash_decode and exit kernels' split-and-merge algorithms are emulated
+here with their launchers' own split plans.
 
 Tolerances:
   * entropy |dH| <= 1e-5: both sides are fp32 log-softmax sums (or the
@@ -33,6 +33,8 @@ from repro.kernels.entropy_exit import (
 from repro.kernels.flash_decode import flash_decode_pallas
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.entropy_exit import SPLITS
+from repro_torch.kernels.entropy_exit import split_plan as exit_split_plan
 from repro_torch.kernels.flash_decode import SPLIT, split_plan
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
@@ -113,6 +115,128 @@ class TestEntropyExitSingleHead:
             one = ops.entropy_exit_argmax(x[k], float(th[k]))
             for a, b in zip(one, heads):
                 assert torch.equal(a, b[k])
+
+
+# ------------------------------------------- the exit kernel's split plan
+def _butterfly(vals):
+    """The kernel's xor-shuffle sum over the SPLITS lanes (offsets 4, 2, 1),
+    lane 0's result."""
+    for o in (SPLITS // 2, SPLITS // 4, 1):
+        vals = [vals[i] + vals[i ^ o] for i in range(SPLITS)]
+    return vals[0]
+
+
+def _exit_split_merge(logits, thresholds):
+    """Test-side emulation of the Hopper exit kernel's algorithm, in fp32:
+    each row's V in the launcher's splits (a function of V alone), a
+    partial (max m, sum e^(l-m), sum l e^(l-m), first argmax) per split, an
+    empty split contributing (-inf, 0, 0) and no index, and the partials
+    merged as the cluster's rank 0 merges them (the max, one rescale per
+    partial, the sums by the xor butterfly, the argmax by (value, index)).
+    Exponentials and the log are taken in float64 and rounded to fp32 (as
+    the card's accurate expf / logf come out): a process's first float32
+    ``torch.exp`` on a CPU can be ~1.5e-4 off (``normalized_entropy``)."""
+    lf = logits.float()
+    k, b, v = lf.shape
+    split, splits = exit_split_plan(v)
+    parts = []
+    for r in range(splits):
+        lo, hi = min(r * split, v), min((r + 1) * split, v)
+        if hi == lo:
+            inf = torch.full((k, b), -math.inf)
+            parts.append((inf, torch.zeros(k, b), torch.zeros(k, b), inf,
+                          torch.full((k, b), 2 ** 31 - 1)))
+            continue
+        x = lf[..., lo:hi]
+        m = x.amax(-1)
+        e = torch.exp((x - m[..., None]).double()).float()
+        bv, bi = x.max(-1)  # first index of the max
+        parts.append((m, e.sum(-1), (x * e).sum(-1), bv, bi + lo))
+    mm = torch.stack([p[0] for p in parts]).amax(0)
+    w = [torch.where(p[0] == -math.inf, 0.0, torch.exp((p[0] - mm).double()).float())
+         for p in parts]
+    s = _butterfly([p[1] * wi for p, wi in zip(parts, w)])
+    u = _butterfly([p[2] * wi for p, wi in zip(parts, w)])
+    bv, bi = parts[0][3], parts[0][4]
+    for p in parts[1:]:
+        take = (p[3] > bv) | ((p[3] == bv) & (p[4] < bi))
+        bv, bi = torch.where(take, p[3], bv), torch.where(take, p[4], bi)
+    h = (mm + torch.log(s.double()).float() - u / s) / math.log(v)
+    th = torch.as_tensor(thresholds, dtype=torch.float32).reshape(-1).expand(k)
+    return h, h < th[:, None], bi.to(torch.int32)
+
+
+def _exit_case(kind):
+    """(K, B, V) fp32 logits (bf16-exact) of one emulation case."""
+    if kind.startswith("kbv"):
+        k, b, v = map(int, kind[3:].split("-"))
+        return _logits(k, b, v, seed=k * v + b)
+    rng = np.random.default_rng(len(kind))
+    k, b, v = {"split_tie": (2, 4, 2048), "pad_splits": (2, 4, 8192),
+               "v5003": (1, 3, 5003), "v40": (2, 3, 40)}[kind]
+    x = (rng.standard_normal((k, b, v)) * 4).astype(np.float32)
+    split, _ = exit_split_plan(v)
+    if kind == "split_tie":  # ties on both sides of a split boundary
+        x[0, 0, [split - 1, split]] = 40.0
+        x[1, 2, [3 * split + 5, 5 * split + 2]] = 40.0
+    if kind == "pad_splits":  # the last two splits all pad lanes
+        x[..., -2 * split:] = -1e30
+    if kind == "v40":  # splits 5..7 empty; a tie inside one split
+        x[1, 1, [9, 12]] = 40.0
+    return x
+
+
+EXIT_KINDS = ["kbv2-8-1000", "kbv3-4-2048", "kbv1-5-5003", "split_tie",
+              "pad_splits", "v5003", "v40"]
+
+
+class TestEntropyExitSplit:
+    """The exit kernel's split-and-merge algorithm, emulated with the
+    launcher's own split plan, against the reference oracle and the Pallas
+    kernel in interpret mode (the kernel itself runs only on the card)."""
+
+    def test_plan_depends_on_v_only(self):
+        assert exit_split_plan(32064) == (4008, SPLITS)
+        assert exit_split_plan(5003) == (632, SPLITS)
+        assert exit_split_plan(40) == (8, SPLITS)  # splits 5..7 empty
+        assert exit_split_plan(1) == (8, SPLITS)
+        for v in (40, 999, 5003, 32000, 32064, 50432):
+            split, splits = exit_split_plan(v)
+            # whole 16-byte groups, covering V, the smallest such split
+            assert split % 8 == 0 and split * splits >= v
+            assert (split - 8) * splits < v
+
+    @pytest.mark.parametrize("kind", EXIT_KINDS)
+    def test_emulation_matches_reference_and_pallas(self, kind):
+        x = _exit_case(kind)
+        jx, tx = _bf16(x)
+        h0 = np.asarray(jref.entropy_exit_argmax_heads_ref(jx, 0.5)[0])
+        thr = np.median(h0, axis=1).astype(np.float32)
+        got = [o.numpy() for o in _exit_split_merge(tx, torch.from_numpy(thr))]
+        jth = jnp.asarray(thr)
+        _assert_decision(*got, *jref.entropy_exit_argmax_heads_ref(jx, jth), thr)
+        _assert_decision(*got, *entropy_exit_argmax_heads_pallas(jx, jth, interpret=True),
+                         thr)
+
+    @pytest.mark.parametrize("v", [1, 7, 40, 64, 1000, 5003, 32064, 50432])
+    def test_kernel_indexing_covers_each_element_once(self, v):
+        """The kernel's index arithmetic with the plan's split: each split's
+        whole 16-byte groups (from lo / 8 on) and the row's last V % 8
+        elements, read once by the split ending at V, cover [0, V) once."""
+        split, splits = exit_split_plan(v)
+        seen = np.zeros(v, np.int64)
+        for rank in range(splits):
+            lo = min(rank * split, v)
+            hi = min(lo + split, v)
+            g_lo = lo // 8
+            g_hi = g_lo + (hi - lo) // 8
+            assert g_lo * 8 == lo or lo == hi  # on a group, or empty
+            for g in range(g_lo, g_hi):
+                seen[8 * g:8 * g + 8] += 1
+            tail = (hi - lo) % 8
+            assert tail == 0 or hi == v  # only the split ending at V
+            seen[hi - tail:hi] += 1
+        assert (seen == 1).all()
 
 
 def _attn_case(b, bc, c, kh, g, d, seed, *, sentinel=False, shared_qpos=False):
