@@ -28,8 +28,8 @@ exit) if any phase fails:
      the exit kernel at both load widths its launcher picks (16-byte and
      scalar: V = 5003, 5002, logits 2 and 4 bytes off 16-byte alignment,
      bitwise equal to the aligned launch), with splits of pad lanes only and empty splits,
-     each K=2 head slice equal to its K=1 launch and each row to the row
-     alone, bit for bit;
+     each K=2 and K=3 head slice equal to its K=1 launch and each row to the
+     row alone, bit for bit;
   4. end to end — three paths, each a ``PartitionedServer`` at full
      published width and depth with random weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
@@ -52,11 +52,27 @@ exit) if any phase fails:
      Phi-3-mini adds a short run with ``heads_batched=False`` for the
      single-head exit kernel.  Kernel launch counts are reset just before
      each run and read just after it.
+  5. partition — the paper's control plane on the resident weights, at the
+     median threshold: Phi-3-mini's 32 layers profiled in measure mode (the
+     kernels, CUDA events) and analyze mode (FLOP and byte counters over
+     the plain lowering), each measured t_c at or above its H100 floor (and
+     layer 1's at or above its profiled device time) and each alpha ==
+     8 x 3072 x 2 bytes; the K=1 ``ServingEngine`` (all three
+     heads in one exit launch) calibrates p_k over 8 steps, its first step
+     held against the plain path; the cut solved for 3g, 4g and wifi
+     (gamma 25, a 32 KiB raw input) with Dijkstra = brute force =
+     ``solve_chain_torch`` in float64 on the card, plus a 64-point
+     bandwidth sweep in one vmapped call; each distinct solved split served
+     once by one ``PartitionedServer`` (finite ``est_latency_s``, exact bytes, one host
+     sync per step) and the example's K=3 lattice plan by a
+     ``MultiTierServer`` (exact bytes on every hop).  Zamba2-1.2B's 38
+     layers are profiled and one preset solved inside its e2e phase.
 
 ``--log PATH`` also writes every printed line to PATH, whole, for runs
 whose output is cut to its end.  The line before the last is the JSON
 ``kernels`` record (``launches``: the
-sum over the end-to-end runs; ``launches_by_path`` splits it); the last
+sum over the end-to-end and partition runs; ``launches_by_path`` splits
+it); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src`` beside it, the script exits non-zero and
 prints no result.
@@ -101,13 +117,16 @@ class E2EPath:
     branch: int
     kernels: tuple[str, ...]
     single_head: bool = False
+    partition: str = ""  # "full": profile, calibrate, solve, serve; "profile"
 
 
 PATHS = (
     E2EPath("phi3_mini_3_8b", 24, NEW_TOKENS, 8,
-            ("flash_decode", "entropy_exit_argmax_heads"), single_head=True),
+            ("flash_decode", "entropy_exit_argmax_heads"), single_head=True,
+            partition="full"),
     E2EPath("zamba2_1_2b", 24, NEW_TOKENS, 9,
-            ("ssd_update", "ssd_scan", "flash_decode", "entropy_exit_argmax_heads")),
+            ("ssd_update", "ssd_scan", "flash_decode", "entropy_exit_argmax_heads"),
+            partition="profile"),
     E2EPath("mamba2_130m", 18, 4, 6,
             ("ssd_update", "ssd_scan", "entropy_exit_argmax_heads")),
 )
@@ -309,6 +328,23 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
           "to its K=1 launch")
     check(rows_ok, f"entropy_exit_argmax_heads: each of the {k * b} rows bitwise "
           "equal to the row launched alone")
+    # The K=1 engine's launch: all three branch heads of Phi-3-mini in one
+    # (3, 8, 32064) pile.  The third head draws from its own generator, so
+    # every other case keeps its inputs.
+    third = (torch.randn((1, b, v), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev) * 4).to(torch.bfloat16)
+    logits3 = torch.cat([logits, third])
+    thr3 = torch.cat([thr, ref.entropy_exit_argmax_heads_ref(third, 0.5)[0].median(
+        dim=1).values.float()])
+    log(f"entropy_exit_argmax_heads: K=3 B={b} V={v} bf16 (the K=1 engine's launch)")
+    err3, whole3 = compare("entropy_exit_argmax_heads K=3", logits3, thr3)
+    errs["entropy_exit_argmax_heads"] = max(errs["entropy_exit_argmax_heads"], err3)
+    heads3_ok = all(same([o[kk] for o in whole3],
+                         [o[0] for o in entropy_exit_argmax_heads_cuda(
+                             logits3[kk:kk + 1], thr3[kk:kk + 1])]) for kk in range(3))
+    torch.cuda.synchronize()
+    check(heads3_ok, "entropy_exit_argmax_heads: each K=3 head slice bitwise equal "
+          "to its K=1 launch")
     # Both instantiations the launcher can pick, each against the plain
     # version; the scalar loads do the same arithmetic, so at V=32064 they
     # must give the 16-byte loads' bits.  These cases draw from their own
@@ -792,36 +828,42 @@ def first_step(torch, srv, sync_check: bool = False):
     return out
 
 
-def serve(torch, srv, n_tokens: int, label: str) -> dict:
+def serve(torch, srv, n_tokens: int, label: str, trace: list | None = None) -> dict:
     """Submit the requests and run them through ``run``; launch counts
-    are reset just before and read just after."""
+    are reset just before and read just after.  With ``trace``, each
+    decode step appends (server report, host seconds, host syncs, overflow
+    re-runs) to it."""
     from repro_torch.kernels import ops
 
-    ex = srv.executor
-    syncs0, retries0 = ex.host_syncs, ex.overflow_retries
-    for p in prompts(srv.cfg):
-        srv.submit(p, n_tokens)
+    ex, sched = srv.executor, srv.scheduler
+    syncs0, retries0, steps0 = ex.host_syncs, ex.overflow_retries, sched.decode_steps
+    rids = [srv.submit(p, n_tokens) for p in prompts(srv.cfg)]
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     step_s, reports = [], []
-    while srv.scheduler.queue or srv.scheduler.active.any():
+    while sched.queue or sched.active.any():
         ts = time.perf_counter()
-        reports += srv.run(max_steps=1)
+        syncs_s, retries_s = ex.host_syncs, ex.overflow_retries
+        new = srv.run(max_steps=1)
         step_s.append(time.perf_counter() - ts)
+        reports += new
+        if trace is not None and new:
+            trace.append((new[0].server_report, step_s[-1], ex.host_syncs - syncs_s,
+                          ex.overflow_retries - retries_s))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
-    sched = srv.scheduler
-    results = [sched.results[r] for r in sched.finished]
+    results = [sched.results[r] for r in rids]
     syncs, retries = ex.host_syncs - syncs0, ex.overflow_retries - retries0
-    check(len(results) == N_REQ and all(len(r.tokens) == n_tokens for r in results),
+    steps = sched.decode_steps - steps0
+    check(all(r.done and len(r.tokens) == n_tokens for r in results),
           f"{label}: all {N_REQ} requests got {n_tokens} tokens")
     check(all(0 <= t < srv.cfg.vocab_size for r in results for t in r.tokens),
           f"{label}: every token inside the vocabulary")
-    check(syncs == sched.decode_steps + retries,
-          f"{label}: host syncs {syncs} == decode steps "
-          f"{sched.decode_steps} + overflow retries {retries}")
+    check(syncs == steps + retries,
+          f"{label}: host syncs {syncs} == decode steps {steps} + overflow "
+          f"retries {retries}")
     last = reports[-1].server_report.tier_result.last_logits
     check(bool(torch.isfinite(last).all()) and tuple(last.shape) ==
           (SLOTS, srv.cfg.padded_vocab_size), f"{label}: final logits finite, (8, V)")
@@ -830,7 +872,7 @@ def serve(torch, srv, n_tokens: int, label: str) -> dict:
                       for c in rep.server_report.compaction})
     decode_ms = statistics.median(s * 1e3 for s in step_s[1:])
     ttft = statistics.median(r.ttft_s for r in results)
-    out = dict(label=label, launches=launches, decode_steps=sched.decode_steps,
+    out = dict(label=label, launches=launches, decode_steps=steps,
                exits=int(exits), tokens=N_REQ * n_tokens, wall_s=wall,
                ttft_s=ttft, decode_step_ms=decode_ms,
                tokens_per_s=N_REQ * n_tokens / wall, cloud_buckets=buckets,
@@ -866,6 +908,395 @@ def profile_decode(torch, srv, steps: int = 3) -> dict:
                top_device_ms_per_step=[(n[:80], t / steps / 1e3) for n, t in top])
     log(f"  profiled decode: {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------- phase 5
+#: Cost-profile inputs of the deployment story in examples/serve_partitioned.py:
+#: an edge 25x slower than the profiled card, a 32 KiB raw input.
+GAMMA, RAW_INPUT_BYTES = 25.0, 32 * 1024.0
+PRESETS = ("3g", "4g", "wifi")
+#: examples/serve_partitioned.py's K=3 fleet: device -> wifi -> edge -> 3g ->
+#: cloud; the phase also solves it with the edge's backhaul at the example's
+#: "degraded-3g" 0.4 Mb/s.
+K3_TIERS = (("device", 60.0, 18.8e6), ("edge", 12.0, 1.10e6), ("cloud", 1.0))
+
+
+def counted(torch, label: str, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; returns (its result, {"label", "launches"})."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(label=label, launches=dict(ops.launches))
+
+
+def layer_floor(cfg, wparams, i: int, pos: int) -> float:
+    """The least seconds layer ``i`` (0-based) of a profiled decode step
+    could take on the card (H100_SXM roofline): its weights read once, the
+    K/V of the ``pos + 1`` valid slots of each attention it runs (its own,
+    and the shared block at a hybrid site), a Mamba2 layer's SSM state read
+    and written; 2 B operations per weight in bf16."""
+    from repro_torch.core import H100_SXM
+    from repro_torch.models.mamba import _dims
+    from repro_torch.models.model import hybrid_sites, trunk_layout
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    (name, kind, _), = trunk_layout(cfg)
+    layer = [t[i] for t in leaves(wparams[name])]
+    kv = 2 * SLOTS * (pos + 1) * cfg.num_kv_heads * cfg.head_dim * 2
+    if kind.mixer == "gqa":
+        state = kv
+    else:
+        _, h, p, n, _, _ = _dims(cfg)
+        state = 2 * SLOTS * h * p * n * 4
+    if i + 1 in hybrid_sites(cfg):
+        layer += list(leaves(wparams["shared_attn"]))
+        state += kv
+    weights = sum(t.numel() for t in layer)
+    nbytes = sum(t.numel() * t.element_size() for t in layer) + state
+    return H100_SXM.roofline_time(2 * SLOTS * weights, nbytes)
+
+
+def profile_phase(torch, cfg, wparams, name: str) -> tuple[list, list, dict]:
+    """Measure-mode and analyze-mode profiles of every trunk layer at the
+    serving shape (8 slots x 4096, the query mid-context), each measured
+    t_c held against its H100 floor and each alpha against B d 2."""
+    from repro_torch.core import H100_SXM, profile_decode_layers
+    from repro_torch.models.model import hybrid_sites
+
+    from repro_torch.models.model import trunk_layout
+
+    t0 = time.perf_counter()
+    iters, warmup = 10, 2
+    measured, run = counted(torch, f"{name} measure-mode profile", lambda:
+                            profile_decode_layers(cfg, wparams, SLOTS, CONTEXT,
+                                                  mode="measure", hardware=H100_SXM,
+                                                  iters=iters, warmup=warmup))
+    analyzed = profile_decode_layers(cfg, wparams, SLOTS, CONTEXT, mode="analyze",
+                                     hardware=H100_SXM)
+    torch.cuda.empty_cache()
+    pos = CONTEXT // 2
+    sites = hybrid_sites(cfg)
+    log(f"  profiled {len(measured)} layers in {time.perf_counter() - t0:.1f} s "
+        f"(B={SLOTS}, C={CONTEXT}, query at {pos} with {pos} earlier positions in "
+        f"every KV ring); measure-mode launches {run['launches']}")
+    floors = []
+    for i, (m, a) in enumerate(zip(measured, analyzed)):
+        floors.append(layer_floor(cfg, wparams, i, pos))
+        log(f"    {m.name}{' (site)' if i + 1 in sites else ''}: measured "
+            f"{m.time_s * 1e3:.5f} ms, floor {floors[-1] * 1e3:.5f} ms; plain "
+            f"lowering {a.flops / 1e9:.4f} GFLOP, {a.bytes_accessed / 1e6:.2f} MB, "
+            f"roofline {a.time_s * 1e3:.5f} ms")
+    alpha = SLOTS * cfg.d_model * 2
+    check(all(m.time_s >= f for m, f in zip(measured, floors)),
+          f"{name}: every layer's measured t_c at or above its H100 floor (worst "
+          f"ratio {min(m.time_s / f for m, f in zip(measured, floors)):.2f})")
+    check(all(c.output_bytes == alpha for c in measured + analyzed),
+          f"{name}: every alpha_i == {SLOTS} x {cfg.d_model} x 2 = {alpha} bytes")
+    check(all(m.name == a.name for m, a in zip(measured, analyzed))
+          and len(measured) == cfg.num_layers,
+          f"{name}: both modes profile all {cfg.num_layers} layers")
+    (_, kind, n), = trunk_layout(cfg)
+    calls = iters + warmup
+    want = {"flash_decode": calls * (n * (kind.mixer == "gqa") + len(sites)),
+            "ssd_update": calls * n * (kind.mixer == "mamba")}
+    check(all(run["launches"][k] == v for k, v in want.items()),
+          f"{name}: measure mode timed the kernels, one launch per call of each "
+          f"layer that runs them ({want})")
+    # Device time of single layers (all device events, profiler) beside
+    # their measured t_c: how much of t_c the eager host adds.
+    from repro_torch.core import decode_layer_fns
+
+    fns, inputs = decode_layer_fns(cfg, wparams, SLOTS, CONTEXT)
+    picks = [0] + [s - 1 for s in sites[:1]]
+    dev_ms = {}
+    for i in picks:
+        ms, src = device_ms(lambda i=i: fns[i][1](inputs[i]))
+        dev_ms[fns[i][0]] = ms
+        log(f"  {name} {fns[i][0]}: {ms:.5f} ms of device time per call ({src}) "
+            f"against measured t_c {measured[i].time_s * 1e3:.5f} ms and floor "
+            f"{floors[i] * 1e3:.5f} ms")
+        check(measured[i].time_s * 1e3 >= ms,
+              f"{name} {fns[i][0]}: measured t_c at or above the layer's device "
+              f"time")
+    del fns, inputs
+    torch.cuda.empty_cache()
+    if sites:
+        on = [m.time_s for i, m in enumerate(measured) if i + 1 in sites]
+        off = [m.time_s for i, m in enumerate(measured) if i + 1 not in sites]
+        log(f"  {name}: site layers {list(sites)} measured "
+            f"{[round(t * 1e3, 5) for t in on]} ms; the other layers' median "
+            f"{statistics.median(off) * 1e3:.5f} ms")
+    summary = dict(measured_ms=[m.time_s * 1e3 for m in measured],
+                   floor_ms=[f * 1e3 for f in floors],
+                   analyzed_ms=[a.time_s * 1e3 for a in analyzed],
+                   analyzed_flops=[a.flops for a in analyzed],
+                   analyzed_bytes=[a.bytes_accessed for a in analyzed],
+                   device_ms=dev_ms)
+    return measured, [run], summary
+
+
+def calibrate_phase(torch, dev, cfg, wparams, compare: bool) -> tuple:
+    """K=1 ``ServingEngine`` (every branch head in one exit launch) over
+    the prompts for 8 decode steps; with ``compare``, its first step on the
+    kernel path is first held against the plain path."""
+    import numpy as np
+
+    from repro_torch.serving import ServingEngine
+
+    inputs = {"tokens": np.stack(prompts(cfg))}
+    thr = cfg.exit_threshold
+    engine = ServingEngine(cfg, wparams, context_len=CONTEXT, device=dev)
+    check(engine.executor.segments[0].branches == cfg.branch_layers,
+          f"K=1 engine evaluates every branch {cfg.branch_layers} in place")
+
+    def first(eng):
+        state = eng.start(inputs)
+        tok = state["last_logits"].argmax(-1).to(torch.int32)[:, None]
+        res, _ = eng.step(tok, state["pos"], state["caches"])
+        del state
+        return tok[:, 0].cpu().numpy(), res
+
+    if compare:
+        k_tok, kern = first(engine)
+        plain_eng = ServingEngine(cfg, wparams, context_len=CONTEXT, device=dev,
+                                  use_kernels=False)
+        p_tok, plain = first(plain_eng)
+        del plain_eng
+        torch.cuda.empty_cache()
+        near = k_tok != p_tok
+        for layer, e in plain.branch_entropy.items():
+            near |= (e < thr) != (kern.branch_entropy[layer] < thr)
+        far = ~near
+        for layer, e in plain.branch_entropy.items():
+            de = float(np.abs(kern.branch_entropy[layer] - e)[far].max(initial=0.0))
+            check(de < 1e-4, f"K=1 engine, first step: branch {layer} |dH| kernel vs "
+                  f"plain {de:.3g} < 1e-4")
+        check(bool((kern.exited == plain.exited)[far].all()) and all(
+            bool((kern.branch_take[l] == plain.branch_take[l])[far].all())
+            for l in plain.branch_take),
+            f"K=1 engine, first step: exit masks kernel vs plain equal on rows whose "
+            f"entropies do not straddle {thr:.6f} (rows at the edge: "
+            f"{near.nonzero()[0].tolist()})")
+    state = engine.start(inputs)
+    syncs0 = engine.host_syncs
+    (toks, stats), run = counted(torch, f"{cfg.name} K=1 calibration",
+                                 lambda: engine.decode(state, 8))
+    del state
+    torch.cuda.empty_cache()
+    check(engine.host_syncs - syncs0 == 8, "K=1 engine: one host sync per decode step")
+    check(run["launches"]["entropy_exit_argmax_heads"] == 8,
+          f"K=1 engine: one K={len(cfg.branch_layers)} exit launch per step "
+          f"({run['launches']})")
+    check(toks.shape == (SLOTS, 8) and bool((toks < cfg.vocab_size).all()),
+          "K=1 engine: 8 tokens per row inside the vocabulary")
+    p_k = stats.conditional_probs()
+    log(f"  calibration at threshold {thr:.6f}: exit counts {stats.counts.tolist()} "
+        f"(branches {cfg.branch_layers} + head), conditional p_k {p_k.tolist()}, "
+        f"from the entropies {stats.calibrate(thr).conditional_p.tolist()}")
+    return p_k, [run], dict(counts=stats.counts.tolist(), p_k=p_k.tolist())
+
+
+def solve_phase(torch, dev, cfg, measured, p_k, presets) -> dict:
+    """Dijkstra on G'_BDNN, brute force and ``solve_chain_torch`` (float64 on
+    the card) agree per preset, and a 64-point bandwidth sweep in one
+    vmapped call agrees point by point with brute force."""
+    import numpy as np
+
+    from repro_torch.core import (
+        NetworkProfile,
+        Partitioner,
+        brute_force_split,
+        build_cost_profile,
+        solve_chain_torch,
+    )
+
+    f64 = torch.float64
+    out = {}
+    for preset in presets:
+        prof = build_cost_profile(measured, cfg.branch_layers, p_k, preset,
+                                  gamma=GAMMA, raw_input_bytes=RAW_INPUT_BYTES)
+        plan = Partitioner(prof, method="dijkstra").solve()
+        oracle = brute_force_split(prof)
+        args = [torch.tensor(x, dtype=f64, device=dev) for x in
+                (prof.t_c, prof.alpha, prof.branch_exit_probs(), GAMMA,
+                 prof.network.bandwidth_bps)]
+        s_t, c_t = solve_chain_torch(*args)
+        rel = max(abs(plan.expected_time_s - oracle.expected_time_s),
+                  abs(float(c_t) - oracle.expected_time_s)) / oracle.expected_time_s
+        check(plan.split_layer == oracle.split_layer == int(s_t) and rel <= 1e-9,
+              f"{preset}: Dijkstra, brute force and solve_chain_torch (float64, "
+              f"{dev}) agree on split {oracle.split_layer}, E[T] "
+              f"{oracle.expected_time_s * 1e3:.4f} ms (rel diff {rel:.2g} <= 1e-9)")
+        log(f"    {preset}: {plan.describe()}")
+        out[preset] = dict(profile=prof, plan=plan)
+    bws = np.logspace(5, 10, 64)
+    sweep = torch.func.vmap(solve_chain_torch, in_dims=(None,) * 4 + (0,))
+    s_sw, c_sw = sweep(*args[:4], torch.tensor(bws, dtype=f64, device=dev))
+    s_sw, c_sw = s_sw.cpu().tolist(), c_sw.cpu().tolist()
+    bad = []
+    for bw, s, c in zip(bws, s_sw, c_sw):
+        o = brute_force_split(dataclasses.replace(
+            prof, network=NetworkProfile("sweep", float(bw))))
+        if s != o.split_layer or abs(c - o.expected_time_s) > 1e-9 * o.expected_time_s:
+            bad.append(float(bw))
+    check(not bad, f"64-point bandwidth sweep 0.1 Mb/s .. 10 Gb/s in one vmapped "
+          f"solve_chain_torch call equals brute force at every point (splits "
+          f"{sorted(set(s_sw))}; failing: {bad or 'none'})")
+    edges = [(float(bws[i]), s_sw[i]) for i in range(len(bws))
+             if i == 0 or s_sw[i] != s_sw[i - 1]]
+    log("    sweep: " + ", ".join(f"split {s} from {bw / 1e6:.4g} Mb/s" for bw, s in edges))
+    # Each split the sweep reaches that no preset chose, at the first
+    # (slowest) bandwidth that picks it: served beside the presets.
+    chosen = {v["plan"].split_layer for v in out.values()}
+    for bw, s in zip(bws, s_sw):
+        if s not in chosen:
+            chosen.add(s)
+            swept = dataclasses.replace(prof, network=NetworkProfile(
+                f"sweep {bw / 1e6:.3g} Mb/s", float(bw)))
+            out[swept.network.name] = dict(profile=swept,
+                                           plan=Partitioner(swept).solve())
+    return out
+
+
+def serve_plans_phase(torch, dev, cfg, wparams, solved) -> tuple[list, dict]:
+    """One ``PartitionedServer`` with a cost profile serves each distinct
+    solved split once; every step has a finite estimate, exact byte
+    accounting and one host sync (plus overflow re-runs).  A preset that
+    solves to a split already served re-prices that served trace under its
+    own cost profile (only the estimate reads the profile)."""
+    from repro_torch.serving import PartitionedServer, bytes_per_sequence
+
+    first = next(iter(solved.values()))
+    srv = PartitionedServer(cfg, wparams, first["plan"].split_layer, device=dev,
+                            slots=SLOTS, context_len=CONTEXT)
+    runs, out, traces = [], {}, {}
+    for preset, sol in solved.items():
+        prof, split = sol["profile"], sol["plan"].split_layer
+        srv.cost_profile = prof
+        wall = None
+        if split in traces:
+            trace = traces[split]
+            est = [srv._estimate(split, r.tier_result) for r, *_ in trace]
+            check(all(e is not None and math.isfinite(e) for e in est),
+                  f"{preset}: est_latency_s finite on every step of the split-"
+                  f"{split} trace, re-priced under the {preset} profile")
+            est = [e * 1e3 for e in est]
+            log(f"    {preset} split {split}: the served trace re-priced, "
+                f"est_latency_s median {statistics.median(est):.4f} ms")
+        else:
+            srv.set_split(split)
+            trace = traces[split] = []
+            run = serve(torch, srv, NEW_TOKENS,
+                        f"{cfg.name} {preset} plan, split {split}", trace)
+            per_seq = bytes_per_sequence(cfg, split)
+            check(all(r.est_latency_s is not None and math.isfinite(r.est_latency_s)
+                      for r, *_ in trace), f"{preset}: est_latency_s finite every step")
+            check(all(r.bytes_shipped == r.shipped * per_seq for r, *_ in trace),
+                  f"{preset}: bytes_shipped == shipped x {per_seq:g} every step "
+                  f"(shipped {[r.shipped for r, *_ in trace]})")
+            check(all(syncs == 1 + retries for _, _, syncs, retries in trace),
+                  f"{preset}: one host sync per step plus overflow re-runs")
+            branchy = any(seg.branches for seg in srv.executor.segments)
+            check(run["launches"]["flash_decode"] > 0 and
+                  (run["launches"]["entropy_exit_argmax_heads"] > 0) == branchy,
+                  f"{preset}: flash_decode launched, and the exit kernel launched "
+                  f"{'since' if branchy else 'not at all: no branch runs before'} "
+                  f"split {split} ({run['launches']})")
+            est = [r.est_latency_s * 1e3 for r, *_ in trace]
+            wall = [t * 1e3 for _, t, _, _ in trace]
+            log(f"    {preset} split {split}: est_latency_s median "
+                f"{statistics.median(est):.4f} ms (model: edge {GAMMA:g}x this card "
+                f"+ {preset}) beside step wall time median "
+                f"{statistics.median(wall):.3f} ms (this card, both tiers)")
+            runs.append(run)
+        out[preset] = dict(split=split, est_ms=est, step_ms=wall,
+                           est_ms_median=statistics.median(est),
+                           step_ms_median=wall and statistics.median(wall))
+    del srv, traces
+    torch.cuda.empty_cache()
+    return runs, out
+
+
+def k3_phase(torch, dev, cfg, wparams, prof, tiers, label) -> tuple[list, dict]:
+    """A K=3 fleet solved on the lattice and served."""
+    from repro_torch.core import solve_multitier
+    from repro_torch.serving import MultiTierServer, bytes_per_sequence
+
+    plan = solve_multitier(prof.t_c, prof.alpha, prof.branch_exit_probs(), tiers)
+    log(f"  K=3 plan, {label} ({' -> '.join(f'{t.name} {t.gamma:g}x' for t in tiers)}, "
+        f"uplinks {[t.uplink_bps for t in tiers[:-1]]} b/s): cuts after "
+        f"{plan.cut_after}, E[T] {plan.expected_time_s * 1e3:.4f} ms")
+    srv = MultiTierServer.from_plan(cfg, wparams, plan, tiers,
+                                    cost=(prof.t_c, prof.alpha), device=dev,
+                                    slots=SLOTS, context_len=CONTEXT)
+    trace: list = []
+    run = serve(torch, srv, NEW_TOKENS, f"{cfg.name} K=3 plan {plan.cut_after}", trace)
+    for j, cut in enumerate(srv.cuts[:len(trace[0][0].bytes_per_hop)]):
+        per_seq = bytes_per_sequence(cfg, cut)
+        check(all(r.bytes_per_hop[j] == r.shipped_per_hop[j] * per_seq
+                  for r, *_ in trace),
+              f"K=3 hop {tiers[j].name}->{tiers[j + 1].name} (cut after {cut}): "
+              f"bytes == shipped x {per_seq:g} every step (shipped "
+              f"{[r.shipped_per_hop[j] for r, *_ in trace]})")
+        check(cut == 0 or per_seq * SLOTS == prof.alpha[cut],
+              f"K=3 hop {j}: per-row bytes x {SLOTS} rows == the profile's alpha")
+    check(all(math.isfinite(r.est_latency_s) for r, *_ in trace)
+          and all(syncs == 1 + retries for _, _, syncs, retries in trace),
+          "K=3: est_latency_s finite and one host sync per step plus re-runs")
+    branchy = any(seg.branches for seg in srv.executor.segments)
+    check(run["launches"]["flash_decode"] > 0 and
+          (run["launches"]["entropy_exit_argmax_heads"] > 0) == branchy,
+          f"K=3: flash_decode launched, and the exit kernel "
+          f"{'launched' if branchy else 'not: no tier before the last runs a branch'} "
+          f"({run['launches']})")
+    est = statistics.median(r.est_latency_s * 1e3 for r, *_ in trace)
+    log(f"    K=3: est_latency_s median {est:.4f} ms, step wall median "
+        f"{statistics.median(t * 1e3 for _, t, _, _ in trace):.3f} ms, exit tiers of "
+        f"the last step {trace[-1][0].exit_tier.tolist()}")
+    del srv
+    torch.cuda.empty_cache()
+    return [run], dict(label=label, cuts=list(plan.cut_after),
+                       expected_ms=plan.expected_time_s * 1e3, est_ms_median=est,
+                       hops=len(trace[0][0].bytes_per_hop))
+
+
+def partition_phase(torch, dev, path: E2EPath, cfg, wparams) -> tuple[list, dict]:
+    """The paper's control plane on the card, on resident weights: profile
+    the layers, calibrate exits on the K=1 engine, solve the cut, and (for
+    ``partition == "full"``) serve each solved split and the K=3 plan.
+    ``cfg`` carries the e2e phase's median threshold."""
+    from repro_torch.core import TierSpec
+
+    log(f"partition: {cfg.name}; cost profiles with gamma {GAMMA:g} and a raw "
+        f"input of {RAW_INPUT_BYTES:g} bytes, as in examples/serve_partitioned.py")
+    full = path.partition == "full"
+    measured, runs, prof_summary = profile_phase(torch, cfg, wparams, cfg.name)
+    p_k, cal_runs, cal = calibrate_phase(torch, dev, cfg, wparams, compare=full)
+    runs += cal_runs
+    solved = solve_phase(torch, dev, cfg, measured, p_k, PRESETS if full else ("4g",))
+    out = dict(profile=prof_summary, calibration=cal,
+               splits={k: v["plan"].split_layer for k, v in solved.items()})
+    if full:
+        serve_runs, out["served"] = serve_plans_phase(torch, dev, cfg, wparams, solved)
+        runs += serve_runs
+        out["k3"] = []
+        example = [TierSpec(*t) for t in K3_TIERS]
+        degraded = [example[0], dataclasses.replace(example[1], uplink_bps=0.4e6),
+                    example[2]]
+        for tiers, label in ((example, "the example's fleet"),
+                             (degraded, "edge backhaul degraded to 0.4 Mb/s")):
+            k3_runs, k3 = k3_phase(torch, dev, cfg, wparams, solved["3g"]["profile"],
+                                   tiers, label)
+            runs += k3_runs
+            out["k3"].append(k3)
+    return runs, out
 
 
 def e2e_phase(torch, dev, path: E2EPath) -> dict:
@@ -1041,10 +1472,17 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
               f"heads_batched=False: the single-head kernel launched {run_c['launches']}")
         runs.append(run_c)
         del srv
+    partition = None
+    if path.partition:
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_runs, partition = partition_phase(torch, dev, path, cfg_b, wparams)
+        runs += part_runs
     del wparams
     gc.collect()
     torch.cuda.empty_cache()
     return dict(arch=path.arch, runs=runs, profile=prof_a, threshold=thr,
+                partition=partition,
                 admission_max_dlogit=dpre, admission_dlogit_bound=pre_tol,
                 first_step_max_dlogit=dlog, first_step_dlogit_bound=dlog_tol,
                 first_step_rows_compared=int(same_in.sum()))

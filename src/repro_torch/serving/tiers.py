@@ -93,6 +93,7 @@ __all__ = [
     "TOKEN_ID_BYTES",
     "bytes_per_sequence",
     "segments_for_cuts",
+    "transfer_seconds",
 ]
 
 #: Per-sequence payload of a hop taken before any trunk layer ran.
@@ -124,6 +125,15 @@ class HopCompaction:
     @property
     def padded_waste(self) -> int:
         return self.bucket - self.survivors
+
+
+def transfer_seconds(nbytes: float, uplink_bps: float | None) -> float:
+    """Wall seconds to ship ``nbytes`` over a hop; an unset/zero uplink
+    reports 0.0 (the hop is unaccounted, not priced: the cost model prices
+    an unusable hop infinite)."""
+    if not uplink_bps or uplink_bps <= 0.0:
+        return 0.0
+    return nbytes * 8.0 / uplink_bps
 
 
 def bytes_per_sequence(cfg: ModelConfig, cut_layer: int) -> float:

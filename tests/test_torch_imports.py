@@ -1,9 +1,11 @@
 """The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor anything of the reference package, and ``chip_smoke.py``
-imports neither."""
+neither JAX nor anything of the reference package, ``chip_smoke.py``
+imports neither, and no file of the port carries the reference's TPU
+rates or sizes."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -22,7 +24,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for name in ("repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b",
-             "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba"):
+             "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
+             "repro_torch.core.shortest_path", "repro_torch.core.profiler",
+             "repro_torch.serving.engine", "repro_torch.serving.multitier"):
     assert name in names, name
 """
 
@@ -33,7 +37,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 26
+    assert n_modules >= 35
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -47,3 +51,16 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     top = {m.split(".")[0] for m in mods}
     assert "repro_torch" in top
     assert not top & {"jax", "jaxlib", "repro"}, top
+
+
+def test_port_holds_no_tpu_rates():
+    """TPU v5e's bf16 peak (197e12) and HBM rate (819e9), and the TPU
+    fleet's DCN (12.5e9) and ICI (50e9) rates, appear nowhere in the port
+    (450e9, NVLink's rate, does not match)."""
+    pat = re.compile(r"(?<![\d.])(197e12|819e9|12\.5e9|50e9)(?!\d)")
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}"
+            for p in sorted((ROOT / "src" / "repro_torch").rglob("*"))
+            if p.is_file() and p.suffix in (".py", ".cu", ".h", ".cuh")
+            for m in pat.finditer(p.read_text())]
+    assert not hits, hits
+    assert pat.search("x = 50e9") and not pat.search("link_bw=450e9")
