@@ -53,10 +53,14 @@ exit) if any phase fails:
      single-head exit kernel.  Kernel launch counts are reset just before
      each run and read just after it.
   5. partition — the paper's control plane on the resident weights, at the
-     median threshold: Phi-3-mini's 32 layers profiled in measure mode (the
-     kernels, CUDA events) and analyze mode (FLOP and byte counters over
-     the plain lowering), each measured t_c at or above its H100 floor (and
-     layer 1's at or above its profiled device time) and each alpha ==
+     median threshold: Phi-3-mini's 32 layers profiled in measure mode
+     (each layer captured as a CUDA graph with the kernels, 10 replays
+     between CUDA events) and analyze mode (FLOP and byte counters over
+     the plain lowering), each measured t_c at or above its H100 floor and
+     within twice the device time of a layer of its kind, the first and
+     last layer's at or above their own device time, each capture holding
+     one launch of each kernel its layer runs and a replay showing those
+     kernels' device events, and each alpha ==
      8 x 3072 x 2 bytes; the K=1 ``ServingEngine`` (all three
      heads in one exit launch) calibrates p_k over 8 steps, its first step
      held against the plain path; the cut solved for 3g, 4g and wifi
@@ -66,12 +70,29 @@ exit) if any phase fails:
      once by one ``PartitionedServer`` (finite ``est_latency_s``, exact bytes, one host
      sync per step) and the example's K=3 lattice plan by a
      ``MultiTierServer`` (exact bytes on every hop).  Zamba2-1.2B's 38
-     layers are profiled and one preset solved inside its e2e phase.
+     layers are profiled (the same checks; site layers against the first
+     site layer) and one preset solved inside its e2e phase.
+  6. alexnet (run after phase 3, before the end-to-end paths) — the
+     paper's B-AlexNet at batch 1 in fp32, random weights from a seeded
+     ``torch.Generator``, with cuDNN and cuBLAS TF32 switched on around
+     the phase so that the model must turn them off itself: each layer and
+     both logits on the card within 1e-4 of the same weights on the CPU;
+     its measure-mode profile (graph replays), each t_c at or above its
+     H100 floor (fp32 FLOPs at 67 TFLOP/s or weight, input and output
+     bytes at 3.35 TB/s) and its device time; the Fig. 4 and Fig. 5
+     sweeps of ``repro_torch.benchmarks`` on that profile, holding E[T]
+     non-increasing in p and the split non-increasing in gamma on every
+     curve and logging the profile-dependent claims; Dijkstra ==
+     ``solve_chain_torch`` == the sweep at both ends of every Fig. 5 curve.
 
 ``--log PATH`` also writes every printed line to PATH, whole, for runs
 whose output is cut to its end.  The line before the last is the JSON
 ``kernels`` record (``launches``: the
-sum over the end-to-end and partition runs; ``launches_by_path`` splits
+sum over the end-to-end and partition runs of the kernels the card ran,
+counted by the wrappers where Python launches a kernel; a graph replay
+reruns the captured kernels without Python, so the partition run adds
+``iters`` launches for each launch it captured: the capture runs nothing,
+its untimed replay and the timed ones do; ``launches_by_path`` splits
 it); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src`` beside it, the script exits non-zero and
@@ -179,9 +200,10 @@ def device_ms(fn, match: str | None = None, iters: int = 30):
     events in the profiler, is logged with its count and left out, and the
     run fails unless two windows are whole and agree within WINDOW_SPREAD.
     Without ``match`` (a plain version or a library call: all device
-    events) it takes the median window.  Returns (ms, source); falls back to
-    :func:`time_ms` (CUDA events, which include host launch gaps) when the
-    profiler records no device time."""
+    events) it takes the median window.  Returns (ms, source, events per
+    call: the most any window recorded, over ``iters``); falls back to
+    :func:`time_ms` (CUDA events, which include host launch gaps; no
+    events) when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,10 +220,10 @@ def device_ms(fn, match: str | None = None, iters: int = 30):
               and (match is None or match in e.name)]
         windows.append((len(ev), sum(ev) / iters / 1e3))
     if max(ms for _, ms in windows) <= 0:
-        return time_ms(fn, iters), "cuda-events"
-    if match is None:
-        return statistics.median(ms for _, ms in windows), "profiler"
+        return time_ms(fn, iters), "cuda-events", 0
     full = max(n for n, _ in windows)
+    if match is None:
+        return statistics.median(ms for _, ms in windows), "profiler", full // iters
     whole = [ms for n, ms in windows if n == full]
     for i, (n, ms) in enumerate(windows):
         if n != full:
@@ -214,7 +236,7 @@ def device_ms(fn, match: str | None = None, iters: int = 30):
           f"{match}: whole profiler windows agree within {WINDOW_SPREAD}x "
           f"({', '.join(f'{ms:.5f}' for ms in whole)} ms per call)")
     src = "profiler" if len(whole) == 3 else f"profiler, {3 - len(whole)} window left out"
-    return statistics.mean(whole), src
+    return statistics.mean(whole), src, full // iters
 
 
 def check(cond: bool, what: str) -> None:
@@ -234,9 +256,9 @@ def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, st
 def kernel_row(name, source, replaces, err, call, match, plain, nbytes, flops,
                library_ms=None, tc_flops=0.0, **extra) -> dict:
     """Time the kernel and its plain version and make its JSON row."""
-    ms, src = device_ms(call, match)
+    ms, src, _ = device_ms(call, match)
     wall = time_ms(call)
-    plain_ms, _ = device_ms(plain)
+    plain_ms, _, _ = device_ms(plain)
     bound_ms, by = bound(nbytes, flops, tc_flops)
     check(ms >= bound_ms, f"{name}: device time {ms:.5f} ms is not below its "
           f"bound {bound_ms:.5f} ms (a reading below it is a measurement fault)")
@@ -535,7 +557,7 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
         kp = k_pos[r]
         mask = ((kp >= 0) & (kp <= q_pos[:, None].long()))[:, None, None, :]
         qs = q[:, :, None, :]
-        ms, _ = device_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
+        ms, _, _ = device_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
         return ms
 
     split, splits = split_plan(CONTEXT)
@@ -587,7 +609,7 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     err = max(err, layout_sweep(torch, dev, gen))
 
     def timed(args_sets, label):
-        ms, _ = device_ms(rotating(flash_decode_cuda, args_sets), "flash_decode")
+        ms, _, _ = device_ms(rotating(flash_decode_cuda, args_sets), "flash_decode")
         q, k, v, k_pos, q_pos, rows = args_sets[0]
         valid = valid_slots(k_pos, q_pos, rows)
         bms, _ = bound(attn_bytes(q, k_pos, valid, kh, q.shape[-1]), 4 * valid * kh * q.shape[-1])
@@ -744,12 +766,12 @@ def ssd_scan_phase(torch, dev, gen) -> list[dict]:
     # Time at Zamba2-1.2B's admission shape, four input sets (90 MB) in turn.
     b, l, h, p, n, g, chunk = 8, 128, 64, 64, 64, 1, 64
     sets = [ssd_inputs(torch, dev, gen, b, l, h, p, n, g) for _ in range(4)]
-    chunked_ms, _ = device_ms(rotating(
+    chunked_ms, _, _ = device_ms(rotating(
         lambda *t: ssd_chunked(*t, chunk), sets))
     log(f"  ssd_chunked (the model's plain prefill scan) {chunked_ms:.4f} ms")
     # Mamba2-130M's admission shape.
     msets = [ssd_inputs(torch, dev, gen, 8, l, 24, p, 128, 1) for _ in range(4)]
-    m_ms, _ = device_ms(rotating(lambda *t: ssd_scan_cuda(*t, chunk=chunk), msets),
+    m_ms, _, _ = device_ms(rotating(lambda *t: ssd_scan_cuda(*t, chunk=chunk), msets),
                         "ssd_scan_kernel")
     m_bound, m_by = bound(scan_bytes(8, l, 24, p, 128, 1), 0,
                           scan_tc_flops(8, l, 24, p, 128, chunk))
@@ -963,36 +985,112 @@ def layer_floor(cfg, wparams, i: int, pos: int) -> float:
     return H100_SXM.roofline_time(2 * SLOTS * weights, nbytes)
 
 
+#: Kernel -> the name its device events carry (flash_decode: split and merge).
+KERNEL_EVENTS = {"flash_decode": "flash_decode", "ssd_update": "ssd_update_kernel"}
+
+
 def profile_phase(torch, cfg, wparams, name: str) -> tuple[list, list, dict]:
     """Measure-mode and analyze-mode profiles of every trunk layer at the
-    serving shape (8 slots x 4096, the query mid-context), each measured
-    t_c held against its H100 floor and each alpha against B d 2."""
-    from repro_torch.core import H100_SXM, profile_decode_layers
-    from repro_torch.models.model import hybrid_sites
-
-    from repro_torch.models.model import trunk_layout
+    serving shape (8 slots x 4096, the query mid-context).  Measure mode
+    times CUDA-graph replays of each layer: each t_c is held at or above
+    its H100 floor and below twice the device time of a layer of its kind,
+    the profiled layers' at or above their own device time, and the
+    captures are shown to hold the kernels (one Python launch per layer
+    that runs one, and their device events in a replay).  Each alpha is
+    held against B d 2."""
+    from repro_torch.core import (
+        H100_SXM,
+        capture_layer,
+        decode_layer_fns,
+        measure_layer_times,
+        profile_decode_layers,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import hybrid_sites, trunk_layout
 
     t0 = time.perf_counter()
     iters, warmup = 10, 2
+    (_, kind, n), = trunk_layout(cfg)
+    sites = hybrid_sites(cfg)
+
+    def kernels_of(i: int) -> dict:
+        """Launches of each kernel in one call of layer i (0-based)."""
+        return {"flash_decode": int(kind.mixer == "gqa") + int(i + 1 in sites),
+                "ssd_update": int(kind.mixer == "mamba")}
+
+    # profile_decode_layers(mode="measure") is decode_layer_fns +
+    # measure_layer_times; the layers are wrapped here to read the
+    # launches each makes while its graph is captured.
+    fns, inputs = decode_layer_fns(cfg, wparams, SLOTS, CONTEXT)
+    captured = []
+
+    def wrap(fn):
+        def call(args):
+            before = dict(ops.launches)
+            out = fn(args)
+            if torch.cuda.is_current_stream_capturing():
+                captured.append({k: ops.launches[k] - before[k] for k in KERNEL_EVENTS})
+            return out
+        return call
+
     measured, run = counted(torch, f"{name} measure-mode profile", lambda:
-                            profile_decode_layers(cfg, wparams, SLOTS, CONTEXT,
-                                                  mode="measure", hardware=H100_SXM,
-                                                  iters=iters, warmup=warmup))
+                            measure_layer_times([(nm, wrap(f)) for nm, f in fns],
+                                                inputs, iters=iters, warmup=warmup))
     analyzed = profile_decode_layers(cfg, wparams, SLOTS, CONTEXT, mode="analyze",
                                      hardware=H100_SXM)
     torch.cuda.empty_cache()
     pos = CONTEXT // 2
-    sites = hybrid_sites(cfg)
     log(f"  profiled {len(measured)} layers in {time.perf_counter() - t0:.1f} s "
         f"(B={SLOTS}, C={CONTEXT}, query at {pos} with {pos} earlier positions in "
-        f"every KV ring); measure-mode launches {run['launches']}")
+        f"every KV ring; measure mode: {warmup} eager calls, one capture, one "
+        f"untimed and {iters} timed replays per layer); launches {run['launches']}")
+    check(captured == [kernels_of(i) for i in range(n)],
+          f"{name}: each layer's capture launched its kernels once per kernel it "
+          f"runs ({sum(c['flash_decode'] for c in captured)} flash_decode, "
+          f"{sum(c['ssd_update'] for c in captured)} ssd_update over {n} captures)")
+    want = {k: (warmup + 1) * sum(kernels_of(i)[k] for i in range(n))
+            for k in KERNEL_EVENTS}
+    check(all(run["launches"][k] == v for k, v in want.items()),
+          f"{name}: measure mode launched each kernel {warmup} eager + 1 captured "
+          f"times per layer that runs it, the replays none from Python ({want})")
+    # From here the run counts the kernels the card ran: a capture records
+    # its launch and runs nothing; the one untimed and the timed replays
+    # each run it.
+    for k in KERNEL_EVENTS:
+        run["launches"][k] += iters * sum(c[k] for c in captured)
+    # Device time of single layers (all device events of an eager call,
+    # profiler): the first and last layer and the first site layer.
+    picks = sorted({0, n - 1, *(s - 1 for s in sites[:1])})
+    dev_ms = {}
+    for i in picks:
+        dev_ms[i], src, _ = device_ms(lambda i=i: fns[i][1](inputs[i]))
+        log(f"  {name} {fns[i][0]}: {dev_ms[i]:.5f} ms of device time per eager "
+            f"call ({src})")
+    # The captures hold the kernels: profiler windows over replays of a
+    # layer of each kind show each of its kernels' device events, as many
+    # per replay as per eager call of the layer.
+    for i in sorted({0, *(s - 1 for s in sites[:1])}):
+        graph, _ = capture_layer(fns[i][1], inputs[i], warmup=1)
+        for k, per_call in kernels_of(i).items():
+            if not per_call:
+                continue
+            _, _, eager = device_ms(lambda i=i: fns[i][1](inputs[i]), KERNEL_EVENTS[k])
+            _, _, replay = device_ms(graph.replay, KERNEL_EVENTS[k])
+            check(replay == eager > 0,
+                  f"{name} {fns[i][0]}: one replay of its graph ran {k} ({replay} "
+                  f"device events, as one eager call: {eager})")
+        del graph
+    del fns, inputs
+    torch.cuda.empty_cache()
     floors = []
     for i, (m, a) in enumerate(zip(measured, analyzed)):
         floors.append(layer_floor(cfg, wparams, i, pos))
-        log(f"    {m.name}{' (site)' if i + 1 in sites else ''}: measured "
-            f"{m.time_s * 1e3:.5f} ms, floor {floors[-1] * 1e3:.5f} ms; plain "
-            f"lowering {a.flops / 1e9:.4f} GFLOP, {a.bytes_accessed / 1e6:.2f} MB, "
-            f"roofline {a.time_s * 1e3:.5f} ms")
+        log(f"    {m.name}{' (site)' if i + 1 in sites else ''}: graph-replay t_c "
+            f"{m.time_s * 1e3:.5f} ms"
+            + (f", device {dev_ms[i]:.5f} ms" if i in dev_ms else "")
+            + f", floor {floors[-1] * 1e3:.5f} ms; plain lowering "
+            f"{a.flops / 1e9:.4f} GFLOP, {a.bytes_accessed / 1e6:.2f} MB, roofline "
+            f"{a.time_s * 1e3:.5f} ms")
     alpha = SLOTS * cfg.d_model * 2
     check(all(m.time_s >= f for m, f in zip(measured, floors)),
           f"{name}: every layer's measured t_c at or above its H100 floor (worst "
@@ -1002,31 +1100,18 @@ def profile_phase(torch, cfg, wparams, name: str) -> tuple[list, list, dict]:
     check(all(m.name == a.name for m, a in zip(measured, analyzed))
           and len(measured) == cfg.num_layers,
           f"{name}: both modes profile all {cfg.num_layers} layers")
-    (_, kind, n), = trunk_layout(cfg)
-    calls = iters + warmup
-    want = {"flash_decode": calls * (n * (kind.mixer == "gqa") + len(sites)),
-            "ssd_update": calls * n * (kind.mixer == "mamba")}
-    check(all(run["launches"][k] == v for k, v in want.items()),
-          f"{name}: measure mode timed the kernels, one launch per call of each "
-          f"layer that runs them ({want})")
-    # Device time of single layers (all device events, profiler) beside
-    # their measured t_c: how much of t_c the eager host adds.
-    from repro_torch.core import decode_layer_fns
-
-    fns, inputs = decode_layer_fns(cfg, wparams, SLOTS, CONTEXT)
-    picks = [0] + [s - 1 for s in sites[:1]]
-    dev_ms = {}
     for i in picks:
-        ms, src = device_ms(lambda i=i: fns[i][1](inputs[i]))
-        dev_ms[fns[i][0]] = ms
-        log(f"  {name} {fns[i][0]}: {ms:.5f} ms of device time per call ({src}) "
-            f"against measured t_c {measured[i].time_s * 1e3:.5f} ms and floor "
-            f"{floors[i] * 1e3:.5f} ms")
-        check(measured[i].time_s * 1e3 >= ms,
-              f"{name} {fns[i][0]}: measured t_c at or above the layer's device "
-              f"time")
-    del fns, inputs
-    torch.cuda.empty_cache()
+        check(measured[i].time_s * 1e3 >= dev_ms[i],
+              f"{name} {measured[i].name}: measured t_c {measured[i].time_s * 1e3:.5f} "
+              f"ms at or above the layer's device time {dev_ms[i]:.5f} ms")
+    # Every layer has the shapes of layer 1 or, at a site, of the first
+    # site layer: its t_c stays within twice that layer's device time.
+    kin = [sites[0] - 1 if i + 1 in sites else 0 for i in range(n)]
+    ratios = [m.time_s * 1e3 / dev_ms[k] for m, k in zip(measured, kin)]
+    worst = max(range(n), key=lambda i: ratios[i])
+    check(max(ratios) <= 2.0,
+          f"{name}: every layer's graph-replay t_c within 2x the device time of its "
+          f"kind (worst {measured[worst].name}: {ratios[worst]:.3f}x)")
     if sites:
         on = [m.time_s for i, m in enumerate(measured) if i + 1 in sites]
         off = [m.time_s for i, m in enumerate(measured) if i + 1 not in sites]
@@ -1038,7 +1123,8 @@ def profile_phase(torch, cfg, wparams, name: str) -> tuple[list, list, dict]:
                    analyzed_ms=[a.time_s * 1e3 for a in analyzed],
                    analyzed_flops=[a.flops for a in analyzed],
                    analyzed_bytes=[a.bytes_accessed for a in analyzed],
-                   device_ms=dev_ms)
+                   device_ms={measured[i].name: dev_ms[i] for i in picks},
+                   t_c_over_device=ratios)
     return measured, [run], summary
 
 
@@ -1488,6 +1574,136 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
                 first_step_rows_compared=int(same_in.sum()))
 
 
+# ---------------------------------------------------------------- phase 6
+def alexnet_phase(torch, dev) -> dict:
+    """B-AlexNet, the paper's own network, at batch 1 in fp32: built on the
+    card from a seeded generator and held against the same weights on the
+    CPU; profiled in measure mode (graph replays), each t_c at or above
+    its H100 floor and its device time; the Fig. 4 and Fig. 5 sweeps on
+    that profile, holding the claims the cost model guarantees for any
+    profile and logging the rest; Dijkstra equal to ``solve_chain_torch``
+    at both ends of every Fig. 5 curve.  cuDNN and cuBLAS TF32 are set to
+    on for the phase (the model must turn them off around its own calls)
+    and back to off after."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.benchmarks import alexnet_profile
+    from repro_torch.benchmarks import fig4_inference_time as fig4
+    from repro_torch.benchmarks import fig5_partition_layer as fig5
+    from repro_torch.core import build_cost_profile, shortest_path_plan, solve_chain_torch
+    from repro_torch.models.alexnet import BAlexNetConfig, forward, init_b_alexnet, layer_fns
+
+    log("alexnet: B-AlexNet (conv1..conv5, fc6..fc8, branch after conv1), batch 1, "
+        "224 x 224 x 3 fp32")
+    backends = torch.backends
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = True
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_b_alexnet(BAlexNetConfig(), gen, dev)
+        images = torch.randn((1, 3, 224, 224), generator=gen, device=dev)
+        cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in params.items()}
+        fns, cpu_fns = layer_fns(params), layer_fns(cpu_params)
+        # Each layer on the card and on the CPU from the same input (the
+        # card's chain), then both logits: fp32 on both sides with the
+        # products summed in other orders, held at 1e-4 of each output's
+        # scale; TF32 (10 mantissa bits) would miss by about 1e-3.
+        x, worst, outs = images, 0.0, []
+        for (name, fn), (_, cfn) in zip(fns, cpu_fns):
+            y = fn(x)
+            want = cfn(x.cpu())
+            err = float((y.cpu() - want).abs().max()) / float(want.abs().max())
+            worst = max(worst, err)
+            check(err <= 1e-4, f"alexnet {name}: card vs CPU max |d| {err:.3g} of the "
+                  f"output's scale <= 1e-4 (fp32, TF32 off inside the model)")
+            outs.append((x, y))
+            x = y
+        main, branch = forward(params, images)
+        main_c, branch_c = forward(cpu_params, images.cpu())
+        d_logits = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                       for a, b in ((main, main_c), (branch, branch_c)))
+        check(d_logits <= 1e-4 and tuple(main.shape) == tuple(branch.shape) == (1, 2)
+              and bool(torch.isfinite(main).all() and torch.isfinite(branch).all()),
+              f"alexnet: main and branch-1 logits (1, 2), finite, card vs CPU within "
+              f"{d_logits:.3g} <= 1e-4 of their scale")
+        check(backends.cudnn.allow_tf32 and backends.cuda.matmul.allow_tf32,
+              "alexnet: the TF32 flags the caller set are restored after the model's calls")
+
+        # Measure mode, each t_c against its floor and its device time.
+        t0 = time.perf_counter()
+        costs = alexnet_profile.profile(params=params)
+        log(f"  measure-mode profile (20 graph replays per layer) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rows = []
+        for c, (name, fn), (xin, y) in zip(costs, fns, outs):
+            counter = FlopCounterMode(display=False)
+            with counter:
+                fn(xin)
+            flops = float(counter.get_total_flops())
+            weights = sum(t.numel() * 4 for t in params[name].values())
+            nbytes = weights + xin.numel() * 4 + y.numel() * 4
+            floor = max(flops / FP32_FLOPS, nbytes / HBM_BPS)
+            dms, src, _ = device_ms(lambda fn=fn, xin=xin: fn(xin))
+            rows.append(dict(name=name, t_c_ms=c.time_s * 1e3, device_ms=dms,
+                             floor_ms=floor * 1e3, gflop=flops / 1e9,
+                             mb=nbytes / 1e6, alpha=c.output_bytes))
+            log(f"    {name}: t_c {c.time_s * 1e3:.5f} ms, device {dms:.5f} ms ({src}), "
+                f"floor {floor * 1e3:.5f} ms ({flops / 1e9:.4f} GFLOP fp32, "
+                f"{nbytes / 1e6:.3f} MB), t_c / device {c.time_s * 1e3 / dms:.3f}, "
+                f"alpha {c.output_bytes:g} B")
+            check(c.time_s >= floor and c.time_s * 1e3 >= dms,
+                  f"alexnet {name}: t_c {c.time_s * 1e3:.5f} ms at or above its floor "
+                  f"{floor * 1e3:.5f} ms and its device time {dms:.5f} ms")
+            check(c.output_bytes == y.numel() * 4, f"alexnet {name}: alpha == output bytes")
+    finally:
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+    del params, cpu_params, fns, cpu_fns, outs
+    torch.cuda.empty_cache()
+
+    # The paper's figures on the measured profile.
+    r4, r5 = fig4.sweep(costs, dev), fig5.sweep(costs, dev)
+    rep4, rep5 = fig4.validate(r4), fig5.validate(r5)
+    check(all(v for k, v in rep4.items() if k.startswith("monotone")),
+          f"fig4: E[T] non-increasing in p on all {len(r4)} curves (101 points each)")
+    check(all(v for k, v in rep5.items() if k.startswith("monotone")),
+          f"fig5: the split non-increasing in gamma on all {len(r5)} curves (60 gammas)")
+    for g in fig4.GAMMAS:
+        red = rep4[f"reduction_pct_gamma{int(g)}"]
+        log(f"  fig4 gamma {g:g} (readings): reductions p 0 -> 1 "
+            + ", ".join(f"{n} {v:.4f}%" for n, v in red.items())
+            + f"; p=1 equal {rep4[f'p1_equal_gamma{int(g)}']}; 3g >= 4g >= wifi "
+            f"{rep4[f'ordering_3g>=4g>=wifi_gamma{int(g)}']}; splits at p=0 "
+            + ", ".join(f"{n} {int(r4[(n, g)][2][0])}" for n in fig4.NETWORKS)
+            + ", at p=1 " + ", ".join(f"{n} {int(r4[(n, g)][2][-1])}" for n in fig4.NETWORKS))
+    log("  fig5 (readings): 4g flips to cloud-only first: "
+        + ", ".join(f"p={p} {rep5[f'4g_flips_first_p{p}']}" for p in fig5.PROBS))
+    ends, bad = {}, []
+    for (net, p), (gammas, splits) in r5.items():
+        ends[f"{net} p={p}"] = [int(splits[0]), int(splits[-1])]
+        for j in (0, -1):
+            g = float(gammas[j])
+            prof = build_cost_profile(costs, (alexnet_profile.BRANCH_AFTER,), (p,), net,
+                                      gamma=g, raw_input_bytes=alexnet_profile.RAW_INPUT_BYTES)
+            plan = shortest_path_plan(prof)
+            args = [torch.tensor(a, dtype=torch.float64, device=dev) for a in
+                    (prof.t_c, prof.alpha, prof.branch_exit_probs(), g,
+                     prof.network.bandwidth_bps)]
+            s_t, c_t = solve_chain_torch(*args)
+            rel = abs(float(c_t) - plan.expected_time_s) / plan.expected_time_s
+            if not (plan.split_layer == int(s_t) == int(splits[j]) and rel <= 1e-9):
+                bad.append((net, p, g, plan.split_layer, int(s_t), int(splits[j]), rel))
+    check(not bad, f"fig5: Dijkstra on G'_BDNN == solve_chain_torch (float64, {dev}) == "
+          f"the sweep at gamma 1 and 1000 on all {len(r5)} curves, E[T] within 1e-9 "
+          f"(failing: {bad or 'none'})")
+    log(f"  fig5 splits at gamma 1 and 1000: {json.dumps(ends)}")
+    for row in fig4.run(costs, dev) + fig5.run(costs, dev):
+        log(f"  {row}")
+    return dict(layers=rows, max_layer_err=worst, logits_err=d_logits,
+                fig4_reduction_pct={int(g): rep4[f"reduction_pct_gamma{int(g)}"]
+                                    for g in fig4.GAMMAS},
+                fig4_claims={k: v for k, v in rep4.items() if not k.startswith("reduction")},
+                fig5_claims=rep5, fig5_split_ends=ends)
+
+
 def main() -> int:
     global _log_file
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1534,6 +1750,7 @@ def main() -> int:
     kernels = (exit_kernel_phase(torch, dev, gen) + flash_kernel_phase(torch, dev, gen)
                + ssd_update_phase(torch, dev, gen) + ssd_scan_phase(torch, dev, gen))
     torch.cuda.empty_cache()
+    alexnet = alexnet_phase(torch, dev)
     e2e = [e2e_phase(torch, dev, path) for path in PATHS]
     for row in kernels:
         by_path = {r["arch"]: sum(run["launches"][row["name"]] for run in r["runs"])
@@ -1544,7 +1761,7 @@ def main() -> int:
         row["launches_per_decode_step"] = {
             r["arch"]: r["runs"][0]["launches"][row["name"]] / steps[r["arch"]]
             for r in e2e}
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, paths=e2e))}")
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, alexnet=alexnet, paths=e2e))}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

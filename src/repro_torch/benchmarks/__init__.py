@@ -1,0 +1,4 @@
+"""repro_torch.benchmarks — the paper's B-AlexNet experiment on the port:
+the measured per-layer profile and the Fig. 4 / Fig. 5 sweeps of the
+partitioner over it.  Each module runs as ``python -m
+repro_torch.benchmarks.<name>``."""

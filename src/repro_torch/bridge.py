@@ -10,7 +10,9 @@ numpy on the JAX side, so this module imports no JAX: callers hand it
     ``torch.from_numpy`` cannot take) go through float32, which holds every
     bf16 value exactly, and are cast back to bf16 on the torch side;
   * :func:`caches_to_numpy` returns bf16 tensors as float32 numpy arrays,
-    so a cache compares against the reference's ``cache.astype(float32)``.
+    so a cache compares against the reference's ``cache.astype(float32)``;
+  * :func:`alexnet_params_from_jax` also changes B-AlexNet's layout
+    (NHWC / HWIO in the reference, NCHW / OIHW in the port).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 
 from repro_torch.kernels.ops import resolve_device
 
-__all__ = ["params_from_jax", "caches_from_jax", "caches_to_numpy"]
+__all__ = ["params_from_jax", "caches_from_jax", "caches_to_numpy",
+           "alexnet_params_from_jax"]
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -59,3 +62,26 @@ def caches_to_numpy(tree) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return _map(tree, conv)
+
+
+#: Side of the square map that B-AlexNet's ``fc6`` / ``b1_fc`` flatten.
+_FLAT_SIDE = {"fc6": 6, "b1_fc": 13}
+
+
+def alexnet_params_from_jax(tree, device=None) -> dict:
+    """The reference's B-AlexNet params (numpy leaves of
+    ``repro.models.alexnet.init_b_alexnet``) in the port's layout on
+    ``device`` (default: the current CUDA device): every conv weight HWIO
+    -> OIHW, and the input rows of ``fc6`` and ``b1_fc`` from the (H, W, C)
+    order of the reference's NHWC flatten to the (C, H, W) order of the
+    port's NCHW flatten.  Values transfer bitwise."""
+    out = {}
+    for name, p in tree.items():
+        w = np.asarray(p["w"])
+        if w.ndim == 4:
+            w = w.transpose(3, 2, 0, 1)
+        elif name in _FLAT_SIDE:
+            side, dout = _FLAT_SIDE[name], w.shape[1]
+            w = w.reshape(side, side, -1, dout).transpose(2, 0, 1, 3).reshape(-1, dout)
+        out[name] = {"w": np.ascontiguousarray(w), "b": np.asarray(p["b"])}
+    return params_from_jax(out, device)

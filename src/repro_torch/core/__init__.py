@@ -10,7 +10,8 @@ Public API:
         build_partition_graph, dijkstra, shortest_path_plan, brute_force_split,
         solve_chain_torch, chain_costs_torch,
         normalized_entropy, calibrate_exit_probs, threshold_sweep,
-        analyze_layer_costs, measure_layer_times, HardwareSpec, H100_SXM,
+        analyze_layer_costs, measure_layer_times, capture_layer, HardwareSpec,
+        H100_SXM,
     )
 """
 
@@ -40,6 +41,7 @@ from repro_torch.core.profiler import (
     HardwareSpec,
     LayerCost,
     analyze_layer_costs,
+    capture_layer,
     decode_layer_fns,
     measure_layer_times,
     output_bytes,
@@ -95,6 +97,7 @@ __all__ = [
     "H100_SXM",
     "LayerCost",
     "analyze_layer_costs",
+    "capture_layer",
     "decode_layer_fns",
     "measure_layer_times",
     "profile_decode_layers",

@@ -5,8 +5,10 @@ The paper measures ``t_i^c`` on Google Colab (K80) and sets
 ``t_i^e = gamma * t_i^c``.  Two sources:
 
   * :func:`measure_layer_times` — time each layer callable on its device:
-    CUDA events around ``iters`` calls for CUDA tensors, ``perf_counter``
-    around the (synchronous) calls on the CPU;
+    on CUDA, ``iters`` replays of the layer captured as a CUDA graph
+    between two CUDA events (the reference jits each layer to time
+    steady-state compute; eager calls would time the host's dispatch);
+    on the CPU, ``perf_counter`` around the (synchronous) calls;
   * :func:`analyze_layer_costs` — roofline times from two counters of each
     layer's aten ops, t = max(flops / peak, bytes / bw): FLOPs from
     ``torch.utils.flop_counter.FlopCounterMode`` (the matmul-class ops),
@@ -21,7 +23,8 @@ either source directly from a BranchyNet trunk: one decode-step callable
 per trunk layer (its residual update *including* the resident-cache
 read/write), dispatched through the same ``use_kernels`` resolution as the
 tier runtime — so measure mode on the card times the Hopper
-``flash_decode`` / ``ssd_update`` launches the runtime makes.  Neither
+``flash_decode`` / ``ssd_update`` kernels the runtime launches, replayed
+from each layer's captured graph.  Neither
 counter can see inside a kernel launched through ctypes, so analyze mode
 always counts the layer's plain PyTorch lowering, which computes the same
 function.
@@ -43,6 +46,7 @@ __all__ = [
     "LayerCost",
     "analyze_layer_costs",
     "branch_head_cost",
+    "capture_layer",
     "decode_layer_fns",
     "measure_layer_times",
     "output_bytes",
@@ -161,6 +165,28 @@ def analyze_layer_costs(
     return out
 
 
+def capture_layer(fn: Callable, args, warmup: int):
+    """``fn(args)`` captured as a ``torch.cuda.CUDAGraph``: ``warmup``
+    eager calls on a side stream first (the capture recipe's warmup, which
+    also settles cuBLAS / cuDNN workspaces and loads the kernels), then
+    one call captured into the graph's own memory pool, freed with the
+    graph.  Returns (graph, static output): each ``graph.replay()`` reruns
+    the captured kernels on the same buffers and rewrites the static
+    output.  Raises if the capture fails (a host sync or an operation that
+    capture refuses inside ``fn``)."""
+    device = next(_tensors(args)).device
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn(args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(graph):
+        out = fn(args)
+    return graph, out
+
+
 def measure_layer_times(
     layer_fns: Sequence[tuple[str, Callable]],
     layer_inputs: Sequence,
@@ -168,30 +194,51 @@ def measure_layer_times(
     warmup: int = 2,
 ) -> list[LayerCost]:
     """Mean time of one call of each layer on its inputs' device (paper
-    Sec. VI mode): after ``warmup`` calls, ``iters`` calls between two CUDA
-    events for CUDA inputs, or between two ``perf_counter`` readings on the
-    CPU, whose ops return when done."""
+    Sec. VI mode).
+
+    CUDA inputs: the layer is captured once as a CUDA graph after
+    ``warmup`` eager calls (:func:`capture_layer`), replayed once untimed
+    (the first launch uploads the graph), and ``iters`` replays are timed
+    between two CUDA events — the layer's kernels back to back, without
+    the host's per-op dispatch, as the reference times a jitted layer.  A
+    layer that updates state in place (a KV slot, an SSM state) redoes
+    that update on every replay, on the same buffers: that is the work the
+    layer does.  ``output_bytes`` is read from the graph's static output,
+    and the graph and its pool are freed before the next layer.  A capture
+    failure raises; there is no eager timing on CUDA.
+
+    CPU inputs: ``warmup`` calls, then ``iters`` calls between two
+    ``perf_counter`` readings (the CPU's ops return when done)."""
     out: list[LayerCost] = []
     for (name, fn), args in zip(layer_fns, layer_inputs):
         device = next(_tensors(args)).device
-        for _ in range(warmup):
-            fn(args)
         if device.type == "cuda":
+            try:
+                graph, res = capture_layer(fn, args, warmup)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"measure mode: capturing {name} as a CUDA graph failed") from e
+            graph.replay()
             torch.cuda.synchronize(device)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(iters):
-                res = fn(args)
+                graph.replay()
             end.record()
             end.synchronize()
             dt = start.elapsed_time(end) / 1e3 / iters
+            ob = output_bytes(res)
+            del graph, res
         else:
+            for _ in range(warmup):
+                fn(args)
             t0 = time.perf_counter()
             for _ in range(iters):
                 res = fn(args)
             dt = (time.perf_counter() - t0) / iters
-        out.append(LayerCost(name, 0.0, 0.0, output_bytes(res), dt))
+            ob = output_bytes(res)
+        out.append(LayerCost(name, 0.0, 0.0, ob, dt))
     return out
 
 
@@ -343,7 +390,8 @@ def profile_decode_layers(
     """Per-layer decode-step costs of a BranchyNet trunk.
 
     ``mode="measure"`` times each layer as the tier runtime runs it
-    (``use_kernels`` resolved as there: the Hopper kernels on the card);
+    (``use_kernels`` resolved as there: the Hopper kernels on the card),
+    as CUDA-graph replays on the card (:func:`measure_layer_times`);
     ``mode="analyze"`` rooflines each layer's plain PyTorch lowering
     (whatever ``use_kernels`` says: the counters cannot see into a
     kernel), running each layer once.  Either way the resulting ``t_c``

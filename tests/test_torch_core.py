@@ -15,6 +15,7 @@ fused count (ours are unfused).
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -563,6 +564,22 @@ class TestProfiler:
         assert [c.name for c in got] == [f"layer{i}" for i in range(1, 5)]
         assert all(c.time_s > 0 and c.output_bytes == 2 * tcfg.d_model * 4
                    for c in got)
+
+    def test_measure_mode_on_cuda_raises_when_capture_fails(self, monkeypatch):
+        """CUDA inputs are timed as graph replays only: a capture that fails
+        raises, and the layer is never timed eagerly instead."""
+        calls = []
+
+        def refuse(fn, args, warmup):
+            raise RuntimeError("operation not permitted when stream is capturing")
+
+        # The layer's input reads as a CUDA tensor; this build has no CUDA.
+        monkeypatch.setattr(tprof, "_tensors", lambda tree: iter(
+            [types.SimpleNamespace(device=torch.device("cuda", 0))]))
+        monkeypatch.setattr(tprof, "capture_layer", refuse)
+        with pytest.raises(RuntimeError, match="capturing layer1 as a CUDA graph failed"):
+            tprof.measure_layer_times([("layer1", calls.append)], [None], iters=2, warmup=1)
+        assert calls == []
 
     def test_profile_feeds_the_partitioner(self, fixture_weights):
         _, tp = fixture_weights
