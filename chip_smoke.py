@@ -44,14 +44,24 @@ exit) if any phase fails:
      ulps at their scale, pad lanes left out; a row whose first decode input
      flipped at an admission near-tie is listed, not compared; at the median
      threshold, exit masks equal away from the threshold), one
-     compacted step's dispatch under ``torch.cuda.set_sync_debug_mode(
-     "error")``, then 8 requests of 128-token prompts through ``submit`` /
-     ``run`` at two exit thresholds (never-exit 0.5, and the median
-     first-branch entropy, where rows exit on the edge and the cloud runs
-     compacted buckets), asserting that every kernel of the path launched;
-     Phi-3-mini adds a short run with ``heads_batched=False`` for the
-     single-head exit kernel.  Kernel launch counts are reset just before
-     each run and read just after it.
+     compacted step's dispatch replaying its segment graphs under
+     ``torch.cuda.set_sync_debug_mode("error")``, then 8 requests of
+     128-token prompts through ``submit`` / ``run`` at two exit thresholds
+     (never-exit 0.5, and the median first-branch entropy, where rows exit
+     on the edge and the cloud runs compacted buckets), asserting that
+     every kernel of the path launched.  The served step replays a CUDA
+     graph per cached segment: each run is held bitwise (tokens, exit
+     masks, takes, entropies, logits, buckets, re-runs) against a
+     ``graphs=False`` twin serving the same requests, at the median
+     threshold with the hints pinned low at the third step (a forced
+     overflow re-run on both), no key may be captured twice in a run, and
+     the decode step's host-clock ms, device ms per step (profiler), idle
+     share and tokens/s are printed for both.  Phi-3-mini adds a short run
+     with ``heads_batched=False`` for the single-head exit kernel, and
+     ``set_split`` 16 -> 24 -> 16 -> 24 whose last two legs capture
+     nothing.  Kernel launch counts are reset just before each run and
+     read just after it; a graph replay adds the launches its capture
+     recorded.
   5. partition — the paper's control plane on the resident weights, at the
      median threshold: Phi-3-mini's 32 layers profiled in measure mode
      (each layer captured as a CUDA graph with the kernels, 10 replays
@@ -69,7 +79,15 @@ exit) if any phase fails:
      bandwidth sweep in one vmapped call; each distinct solved split served
      once by one ``PartitionedServer`` (finite ``est_latency_s``, exact bytes, one host
      sync per step) and the example's K=3 lattice plan by a
-     ``MultiTierServer`` (exact bytes on every hop).  Zamba2-1.2B's 38
+     ``MultiTierServer`` (exact bytes on every hop); a K=3 cut move
+     (8, 24) -> (16, 24) at threshold 0.5 captures only the two changed
+     segments (the cloud replays its graph); the ``RepartitionController``
+     on the 4g profile installs solve_phase's 4g split, moves to its 3g
+     split on ``update_network``, and re-solves from measured exits as the
+     scheduler's ``on_step`` hook (drift check every 4 steps, a probe step
+     every 3rd); and two servers on equal caches, one probing (all heads,
+     then half the rows sampled), keep tokens, exits and every cache
+     tensor bitwise equal.  Zamba2-1.2B's 38
      layers are profiled (the same checks; site layers against the first
      site layer) and one preset solved inside its e2e phase.
   6. alexnet (run after phase 3, before the end-to-end paths) — the
@@ -90,10 +108,11 @@ whose output is cut to its end.  The line before the last is the JSON
 ``kernels`` record (``launches``: the
 sum over the end-to-end and partition runs of the kernels the card ran,
 counted by the wrappers where Python launches a kernel; a graph replay
-reruns the captured kernels without Python, so the partition run adds
-``iters`` launches for each launch it captured: the capture runs nothing,
-its untimed replay and the timed ones do; ``launches_by_path`` splits
-it); the last
+reruns the captured kernels without Python: a served segment's replay
+adds the launches its capture recorded (the capture runs nothing), and
+the measure-mode profile adds ``iters`` launches for each launch it
+captured (its untimed replay stands for the capture); ``launches_by_path``
+splits it); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src`` beside it, the script exits non-zero and
 prints no result.
@@ -153,6 +172,14 @@ PATHS = (
 )
 
 
+_T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """A phase boundary, with the seconds since the script started."""
+    log(f"[{time.perf_counter() - _T0:.1f} s] {what}")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
     if _log_file is not None:
@@ -189,6 +216,40 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 
 
 WINDOW_SPREAD = 1.5  # largest / smallest whole window a kernel may show
+#: CUDA API calls (runtime `cuda*`, low-level `cu*`) that make the host wait
+#: for the card.
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
+              "cuCtxSynchronize", "cuStreamSynchronize", "cuEventSynchronize",
+              "cudaFree", "cudaFreeHost", "cuMemFree", "cuMemFreeHost", "cudaMemcpy",
+              "cudaMemset")
+
+
+def sync_calls(torch, fn) -> list[str]:
+    """Run ``fn`` under ``set_sync_debug_mode("error")`` (which raises at a
+    stream sync, such as a blocking copy) and ``torch.profiler``, and return
+    the synchronizing CUDA API calls (SYNC_CALLS, by exact name) made
+    between its start and end: an explicit ``torch.cuda.synchronize`` or an
+    allocator flush shows there, unseen by the debug mode.  The profiler's
+    own start and stop fall outside that window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        with record_function("sync_calls window"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    win = [e.time_range for e in prof.events() if e.name == "sync_calls window"
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(win) != 1:
+        raise SystemExit(f"FAILED: sync_calls found {len(win)} profiled windows")
+    lo, hi = win[0].start, win[0].end
+    return [e.name for e in prof.events()
+            if e.name in SYNC_CALLS and lo <= e.time_range.start <= hi]
 
 
 def device_ms(fn, match: str | None = None, iters: int = 30):
@@ -816,8 +877,10 @@ def prompts(cfg):
 
 def first_step(torch, srv, sync_check: bool = False):
     """Admit the prompts into fresh caches and decode one step; with
-    ``sync_check`` also run one compacted step's dispatch under
-    ``set_sync_debug_mode("error")`` (any hidden sync raises)."""
+    ``sync_check`` also run two compacted dispatches, the first capturing
+    its key and the second replaying, each under
+    ``set_sync_debug_mode("error")`` and :func:`sync_calls`: neither may
+    wait for the card."""
     from repro_torch.serving import RequestScheduler
 
     sched = RequestScheduler(srv, SLOTS, CONTEXT)
@@ -833,38 +896,62 @@ def first_step(torch, srv, sync_check: bool = False):
                logits=res.last_logits.float().clone())
     if sync_check:
         ex = srv.executor
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+
+        def dispatch():
             pos_t = ex._upload(sched.pos.copy(), torch.int32)
             exited0 = ex._upload(~sched.active, torch.bool)
-            ex.dispatch(sched.tok_dev, pos_t, sched.caches,
-                        {1: SLOTS // 2}, exited0)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        log("  ok: one compacted step's dispatch ran under "
-            "set_sync_debug_mode('error') with no hidden sync")
+            ex.dispatch(sched.tok_dev, pos_t, sched.caches, {1: SLOTS // 2}, exited0)
+
+        def debugged():
+            """dispatch() through :func:`sync_calls`; returns the keys it
+            captured, the graphs it replayed, and its synchronizing CUDA
+            calls."""
+            counts, replays = dict(ex.trace_counts), sum(ex.replays.values())
+            syncs = sync_calls(torch, dispatch)
+            new = [k for k, n in ex.trace_counts.items() if n != counts.get(k, 0)]
+            return new, sum(ex.replays.values()) - replays, syncs
+
+        n_seg = sum(not seg.is_empty for seg in ex.segments)
+        # The compacted key's first use: the eager step and its capture.
+        new, replays, syncs = debugged()
+        check(len(new) == 1 and new[0][1] == SLOTS // 2 and replays == n_seg - 1
+              and not syncs,
+              f"a compacted step's first dispatch captured its bucket-{SLOTS // 2} "
+              f"key {new} and replayed the other {replays} segment graph(s) under "
+              f"set_sync_debug_mode('error') with no synchronizing CUDA call "
+              f"{syncs}: the capture makes no host sync")
+        new, replays, syncs = debugged()
+        check(new == [] and replays == n_seg and not syncs,
+              f"the next compacted dispatch replayed its {n_seg} segment graphs "
+              f"under set_sync_debug_mode('error') with no synchronizing CUDA "
+              f"call {syncs}: no sync, no capture")
     del sched
     torch.cuda.empty_cache()
     return out
 
 
-def serve(torch, srv, n_tokens: int, label: str, trace: list | None = None) -> dict:
+def serve(torch, srv, n_tokens: int, label: str, trace: list | None = None,
+          pin_at: int | None = None) -> dict:
     """Submit the requests and run them through ``run``; launch counts
     are reset just before and read just after.  With ``trace``, each
     decode step appends (server report, host seconds, host syncs, overflow
-    re-runs) to it."""
+    re-runs) to it.  ``pin_at``: the bucket hints are pinned to 1 before
+    that step (a forced overflow re-run when more rows survive).  Under
+    graphs, no key may be captured twice in the run."""
     from repro_torch.kernels import ops
 
     ex, sched = srv.executor, srv.scheduler
     syncs0, retries0, steps0 = ex.host_syncs, ex.overflow_retries, sched.decode_steps
+    counts0, replays0 = dict(ex.trace_counts), sum(ex.replays.values())
     rids = [srv.submit(p, n_tokens) for p in prompts(srv.cfg)]
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     step_s, reports = [], []
     while sched.queue or sched.active.any():
+        if pin_at == len(step_s):
+            ex._hints = {i: 1 for i, seg in enumerate(ex.segments)
+                         if i and not seg.is_empty}
         ts = time.perf_counter()
         syncs_s, retries_s = ex.host_syncs, ex.overflow_retries
         new = srv.run(max_steps=1)
@@ -894,40 +981,129 @@ def serve(torch, srv, n_tokens: int, label: str, trace: list | None = None) -> d
                       for c in rep.server_report.compaction})
     decode_ms = statistics.median(s * 1e3 for s in step_s[1:])
     ttft = statistics.median(r.ttft_s for r in results)
-    out = dict(label=label, launches=launches, decode_steps=steps,
+    captured = {k: n - counts0.get(k, 0) for k, n in ex.trace_counts.items()
+                if n != counts0.get(k, 0)}
+    if ex.graphs:
+        check(all(n == 1 for n in captured.values()),
+              f"{label}: no key captured twice in the run ({len(captured)} captured)")
+    out = dict(label=label, graphs=ex.graphs, launches=launches, decode_steps=steps,
                exits=int(exits), tokens=N_REQ * n_tokens, wall_s=wall,
                ttft_s=ttft, decode_step_ms=decode_ms,
                tokens_per_s=N_REQ * n_tokens / wall, cloud_buckets=buckets,
-               overflow_retries=retries)
+               overflow_retries=retries, captured=len(captured),
+               captured_keys=sorted(captured),
+               replays=sum(ex.replays.values()) - replays0)
     log(f"  {label}: {json.dumps(out)}")
     return out
 
 
-def profile_decode(torch, srv, steps: int = 3) -> dict:
+def same_runs(torch, trace_g: list, trace_e: list, label: str) -> None:
+    """A graphed run against its ``graphs=False`` twin (same weights,
+    prompts, budgets and fresh hints): every step's tokens, exit masks,
+    per-branch takes and entropies, main-head logits, buckets and overflow
+    re-runs bitwise equal.  The first difference is named."""
+    import numpy as np
+
+    first = None
+    for i, ((rg, _, _, og), (re_, _, _, oe)) in enumerate(zip(trace_g, trace_e)):
+        a, b = rg.tier_result, re_.tier_result
+        fields = [("tokens", a.tokens, b.tokens), ("exited", a.exited, b.exited),
+                  ("exit tiers", a.exit_tier, b.exit_tier)]
+        for layer in a.branch_take:
+            fields += [(f"branch {layer} take", a.branch_take[layer],
+                        b.branch_take.get(layer)),
+                       (f"branch {layer} entropy", a.branch_entropy[layer],
+                        b.branch_entropy.get(layer))]
+        diff = [n for n, x, y in fields if y is None or not np.array_equal(x, y)]
+        if not torch.equal(a.last_logits, b.last_logits):
+            diff.append("main-head logits")
+        if (og, [c.bucket for c in a.compaction]) != (oe, [c.bucket for c in b.compaction]):
+            diff.append("buckets or overflow re-runs")
+        if diff and first is None:
+            first = (i, diff)
+    check(len(trace_g) == len(trace_e) and first is None,
+          f"{label}: graphed run == eager twin bitwise on all {len(trace_g)} steps "
+          f"(tokens, exit masks, takes, entropies, logits, buckets, re-runs)"
+          + ("" if first is None else f"; first difference at step {first[0]}: {first[1]}"))
+
+
+def swap_phase(torch, srv, other: int) -> list[dict]:
+    """``set_split`` to ``other``, back, and again (A -> B -> A -> B -> A),
+    4 tokens of the same requests at each: once both plans have served,
+    the swaps capture nothing, every step replays cached graphs."""
+    home = srv.split_layer
+    runs = []
+    for leg, split in enumerate((other, home, other, home)):
+        srv.set_split(split)
+        run = serve(torch, srv, 4, f"{srv.cfg.name} swap leg {leg + 1}: split {split}")
+        if leg >= 2:
+            check(run["captured"] == 0 and run["replays"] > 0,
+                  f"swap back to split {split}: nothing captured, {run['replays']} "
+                  f"graph replays")
+        runs.append(run)
+    return runs
+
+
+#: The device kernels each wrapper's launch runs (flash_decode: its split
+#: and merge kernels; the three exit wrappers share one kernel).
+LAUNCH_EVENTS = {
+    "flash_decode": ("flash_decode_split_kernel", "flash_decode_merge_kernel"),
+    "ssd_update": ("ssd_update_kernel",),
+    "ssd_scan": ("ssd_scan_kernel",),
+    ("entropy_exit_argmax_heads", "entropy_exit_argmax", "entropy_exit"):
+        ("entropy_exit_argmax_kernel",),
+}
+
+
+def profile_decode(torch, srv, label: str, steps: int = 3) -> dict:
     """Device busy share and the largest device consumers over ``steps``
-    steady decode steps (after admission and one warm step)."""
+    steady decode steps (after admission and one warm step).  The window's
+    device events of each kernel are checked equal to the launches the
+    wrappers counted in it: under graphs those are the launches each
+    replayed capture recorded, so a graph that lost a kernel fails here."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
 
     for p in prompts(srv.cfg):
         srv.submit(p, steps + 3)
     srv.run(max_steps=2)
     torch.cuda.synchronize()
+    before, replays = dict(ops.launches), sum(srv.executor.replays.values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         srv.run(max_steps=steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
+    n_events: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_events[e.name] = n_events.get(e.name, 0) + 1
+    counted = {}
+    for names, kernels in LAUNCH_EVENTS.items():
+        names = (names,) if isinstance(names, str) else names
+        n = sum(ops.launches[k] - before[k] for k in names)
+        got = [sum(c for nm, c in n_events.items() if kern in nm) for kern in kernels]
+        counted[names[0]] = (n, got)
+    replays = sum(srv.executor.replays.values()) - replays
+    check(all(g == n for n, got in counted.values() for g in got),
+          f"{label}: over {steps} profiled decode steps ({replays} graph replays) "
+          f"each kernel's device events equal the launches counted "
+          f"{ {k: v for k, v in counted.items() if v[0]} } (launches, [events "
+          f"per kernel it runs])")
     srv.run()
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+    # Where the host's own time goes: operators by self CPU time.
+    host = sorted(((e.key, e.self_cpu_time_total) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:8]
+    out = dict(steps=steps, replayed=replays, wall_ms_per_step=wall_us / steps / 1e3,
                device_ms_per_step=busy / steps / 1e3,
                device_idle_share=1.0 - busy / wall_us if wall_us else None,
-               top_device_ms_per_step=[(n[:80], t / steps / 1e3) for n, t in top])
+               top_device_ms_per_step=[(n[:80], t / steps / 1e3) for n, t in top],
+               top_host_self_ms_per_step=[(n[:80], t / steps / 1e3) for n, t in host])
     log(f"  profiled decode: {json.dumps(out)}")
     return out
 
@@ -1068,19 +1244,33 @@ def profile_phase(torch, cfg, wparams, name: str) -> tuple[list, list, dict]:
             f"call ({src})")
     # The captures hold the kernels: profiler windows over replays of a
     # layer of each kind show each of its kernels' device events, as many
-    # per replay as per eager call of the layer.
+    # per replay as per eager call of the layer.  Each call finds its
+    # operands cold, as in a served step (the whole model runs between two
+    # launches of one layer's kernel): back to back, a layer's 8.4 MB
+    # Mamba2 state can stay in the 50 MB L2 in one window and not in the
+    # next (ssd_update read 0.0069 then 0.0033 ms per call, faster than
+    # HBM allows).
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def cold(fn):
+        def call():
+            flush.zero_()
+            fn()
+        return call
+
     for i in sorted({0, *(s - 1 for s in sites[:1])}):
         graph, _ = capture_layer(fns[i][1], inputs[i], warmup=1)
         for k, per_call in kernels_of(i).items():
             if not per_call:
                 continue
-            _, _, eager = device_ms(lambda i=i: fns[i][1](inputs[i]), KERNEL_EVENTS[k])
-            _, _, replay = device_ms(graph.replay, KERNEL_EVENTS[k])
+            _, _, eager = device_ms(cold(lambda i=i: fns[i][1](inputs[i])),
+                                    KERNEL_EVENTS[k])
+            _, _, replay = device_ms(cold(graph.replay), KERNEL_EVENTS[k])
             check(replay == eager > 0,
                   f"{name} {fns[i][0]}: one replay of its graph ran {k} ({replay} "
                   f"device events, as one eager call: {eager})")
         del graph
-    del fns, inputs
+    del fns, inputs, flush
     torch.cuda.empty_cache()
     floors = []
     for i, (m, a) in enumerate(zip(measured, analyzed)):
@@ -1186,7 +1376,7 @@ def calibrate_phase(torch, dev, cfg, wparams, compare: bool) -> tuple:
     log(f"  calibration at threshold {thr:.6f}: exit counts {stats.counts.tolist()} "
         f"(branches {cfg.branch_layers} + head), conditional p_k {p_k.tolist()}, "
         f"from the entropies {stats.calibrate(thr).conditional_p.tolist()}")
-    return p_k, [run], dict(counts=stats.counts.tolist(), p_k=p_k.tolist())
+    return stats, [run], dict(counts=stats.counts.tolist(), p_k=p_k.tolist())
 
 
 def solve_phase(torch, dev, cfg, measured, p_k, presets) -> dict:
@@ -1353,6 +1543,122 @@ def k3_phase(torch, dev, cfg, wparams, prof, tiers, label) -> tuple[list, dict]:
                        hops=len(trace[0][0].bytes_per_hop))
 
 
+def k3_move_phase(torch, dev, cfg, wparams) -> list[dict]:
+    """K=3 at threshold 0.5 (no exits, so every bucket is the full batch):
+    cuts (8, 24) served, then the first cut moved to 16: only the two
+    segments whose key changed are captured again; the cloud segment
+    (layers 24-32) replays the graph it already had."""
+    from repro_torch.core import TierSpec
+    from repro_torch.serving import MultiTierServer
+
+    cfg0 = dataclasses.replace(cfg, exit_threshold=0.5)
+    srv = MultiTierServer(cfg0, wparams, [TierSpec(*t) for t in K3_TIERS], (8, 24),
+                          device=dev, slots=SLOTS, context_len=CONTEXT)
+    ex = srv.executor
+    run1 = serve(torch, srv, 4, f"{cfg.name} K=3 cuts (8, 24)")
+    srv.install_cuts((16, 24))
+    replays0 = dict(ex.replays)
+    run2 = serve(torch, srv, 4, f"{cfg.name} K=3 cuts moved to (16, 24)")
+    spans = sorted({key[0][:2] for key in run2["captured_keys"]})
+    cloud = {k: n - replays0.get(k, 0) for k, n in ex.replays.items()
+             if k[0][:2] == (24, 32)}
+    check(spans == [(0, 16), (16, 24)] and sum(cloud.values()) > 0,
+          f"K=3 cut move (8, 24) -> (16, 24): captured only the changed segments "
+          f"{spans}; the cloud segment (24, 32) replayed its cached graph "
+          f"{sum(cloud.values())} times")
+    del srv, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [run1, run2]
+
+
+def controller_phase(torch, dev, cfg, wparams, solved, stats) -> tuple[list, dict]:
+    """``RepartitionController`` at full width on the partition phase's
+    profile: ``update`` on the 4g profile installs the split ``solve_phase``
+    solved for 4g; ``update_network`` to 3g moves it to the 3g split; then
+    a served run with the controller as the scheduler's ``on_step`` hook
+    (a drift check every 4 steps at KL threshold 0, a probe step every 3rd)
+    re-solves from the measured exits."""
+    from repro_torch.core import Partitioner
+    from repro_torch.serving import PartitionedServer, RepartitionController
+
+    prof4 = solved["4g"]["profile"]
+    srv = PartitionedServer(cfg, wparams, 0, cost_profile=prof4, device=dev,
+                            slots=SLOTS, context_len=CONTEXT)
+    ctl = RepartitionController(srv, prof4, kl_threshold=0.0, every_n_steps=4,
+                                explore_every_n=3)
+    want = {net: solved[net]["plan"].split_layer for net in ("4g", "3g")}
+    got = {"4g": ctl.update(stats)[0]}
+    got["3g"] = ctl.update_network(solved["3g"]["profile"].network)[0]
+    check(got == want and srv.split_layer == want["3g"],
+          f"controller: update on the 4g profile installs split {got['4g']}, "
+          f"update_network to 3g moves it to {got['3g']} (solve_phase: {want})")
+    swaps = []
+    srv.scheduler.on_step.append(lambda res: swaps.append(ctl.observe(res)))
+    run = serve(torch, srv, NEW_TOKENS, f"{cfg.name} under the controller")
+    moved = [s for s in swaps if s is not None]
+    resolved = Partitioner(ctl.profile).with_exit_probs(ctl._installed_p).solve()
+    check(bool(moved) and (srv.split_layer,) == moved[-1] == (resolved.split_layer,),
+          f"controller: the drift check re-solved {len(moved)} times from the "
+          f"measured exits (cuts {moved}), the last install equal to Dijkstra on "
+          f"the measured p_k {ctl._installed_p.tolist()}")
+    log(f"  controller: measured p_k {ctl.measured_probs().tolist()}, split now "
+        f"{srv.split_layer}, {run['captured']} keys captured in the run (probe "
+        f"steps' among them)")
+    del srv, ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [run], dict(update_4g=got["4g"], update_network_3g=got["3g"],
+                       resolves=[list(m) for m in moved])
+
+
+def probe_phase(torch, dev, cfg, wparams) -> list[dict]:
+    """Two graphed servers at split 24 on equal caches and inputs (512-slot
+    rings); the second probes at steps 2 (every head) and 3 (half the rows
+    sampled): tokens and exits of every step, and then every cache tensor,
+    bitwise those of the first."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import PartitionedServer, RequestScheduler
+
+    srvs = [PartitionedServer(cfg, wparams, 24, device=dev) for _ in range(2)]
+    scheds = [RequestScheduler(s, SLOTS, 512) for s in srvs]
+    for sched in scheds:
+        for p in prompts(cfg):
+            sched.submit(p, 8)
+    ex = srvs[1].executor
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    same, probed = True, []
+    for i in range(4):
+        ex.probe_next = i in (1, 2)
+        ex.probe_sample_frac = 0.5 if i == 2 else 1.0
+        a, b = (s.step().server_report.tier_result for s in scheds)
+        same &= all(np.array_equal(x, y) for x, y in (
+            (a.tokens, b.tokens), (a.exited, b.exited), (a.exit_tier, b.exit_tier)))
+        probed.append((sorted(b.branch_take), sorted(b.branch_probe_mask)))
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    caches_equal = all(torch.equal(x, y) for x, y in
+                       zip(leaves(scheds[0].caches), leaves(scheds[1].caches)))
+    kept = sorted(srvs[0].executor.segments[0].branches)
+    check(same and caches_equal and probed[1][0] == probed[2][0] == sorted(
+        cfg.branch_layers) and probed[2][1] and probed[0][0] == probed[3][0] == kept,
+          f"probe steps (full, then sampled) leave tokens, exits and every cache "
+          f"tensor bitwise those of normal steps; branches reported per step "
+          f"{probed}")
+    del srvs, scheds, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [dict(label=f"{cfg.name} probe steps", launches=launches)]
+
+
 def partition_phase(torch, dev, path: E2EPath, cfg, wparams) -> tuple[list, dict]:
     """The paper's control plane on the card, on resident weights: profile
     the layers, calibrate exits on the K=1 engine, solve the cut, and (for
@@ -1363,8 +1669,10 @@ def partition_phase(torch, dev, path: E2EPath, cfg, wparams) -> tuple[list, dict
     log(f"partition: {cfg.name}; cost profiles with gamma {GAMMA:g} and a raw "
         f"input of {RAW_INPUT_BYTES:g} bytes, as in examples/serve_partitioned.py")
     full = path.partition == "full"
+    stamp(f"{cfg.name}: served runs done")
     measured, runs, prof_summary = profile_phase(torch, cfg, wparams, cfg.name)
-    p_k, cal_runs, cal = calibrate_phase(torch, dev, cfg, wparams, compare=full)
+    stats, cal_runs, cal = calibrate_phase(torch, dev, cfg, wparams, compare=full)
+    p_k = stats.conditional_probs()
     runs += cal_runs
     solved = solve_phase(torch, dev, cfg, measured, p_k, PRESETS if full else ("4g",))
     out = dict(profile=prof_summary, calibration=cal,
@@ -1382,6 +1690,12 @@ def partition_phase(torch, dev, path: E2EPath, cfg, wparams) -> tuple[list, dict
                                    tiers, label)
             runs += k3_runs
             out["k3"].append(k3)
+        stamp(f"{cfg.name}: profiled, calibrated, solved, served the plans")
+        runs += k3_move_phase(torch, dev, cfg, wparams)
+        ctl_runs, out["controller"] = controller_phase(torch, dev, cfg, wparams,
+                                                       solved, stats)
+        runs += ctl_runs
+        runs += probe_phase(torch, dev, cfg, wparams)
     return runs, out
 
 
@@ -1492,10 +1806,48 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
               f"{name} {label}: every kernel of the path launched "
               f"{ {k: run['launches'][k] for k in path.kernels} }")
 
-    run_a = serve(torch, srv, path.new_tokens, f"{name} threshold 0.5")
+    def twin_runs(srv, cfg, label, pin_at=None, profile=False):
+        """The graphed server's run, then its graphs=False twin's, from
+        fresh hints each, held bitwise equal; with ``profile`` the twin's
+        steady decode is profiled too."""
+        trace_g, trace_e = [], []
+        srv.executor.install(srv.executor.segments)  # fresh hints
+        run_g = serve(torch, srv, path.new_tokens, label, trace_g, pin_at)
+        eager = server(cfg, wparams, graphs=False)
+        run_e = serve(torch, eager, path.new_tokens, f"{label}, eager twin", trace_e,
+                      pin_at)
+        prof_e = profile_decode(torch, eager, f"{label}, eager twin") if profile else None
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        same_runs(torch, trace_g, trace_e, label)
+        check(run_g["replays"] > 0 and run_e["replays"] == 0,
+              f"{label}: the graphed run replayed {run_g['replays']} segment graphs "
+              f"({run_g['captured']} captured), the eager twin none")
+        return run_g, run_e, prof_e
+
+    stamp(f"{name}: first steps checked")
+    run_a, run_ae, prof_ae = twin_runs(srv, cfg_a, f"{name} threshold 0.5",
+                                       profile=True)
     launched(run_a, "threshold 0.5")
-    prof_a = profile_decode(torch, srv)
+    prof_a = profile_decode(torch, srv, f"{name} threshold 0.5")
+    check(prof_a["replayed"] > 0, f"{name} threshold 0.5: the profiled steps "
+          f"replayed {prof_a['replayed']} graphs")
+    # The profiler's own host cost stretches its window: the idle share is
+    # also read against the unprofiled run's median step.
+    idle = {k: 1.0 - p["device_ms_per_step"] / r["decode_step_ms"]
+            for k, p, r in (("graphs", prof_a, run_a), ("eager", prof_ae, run_ae))}
+    log(f"  {name} graphs / eager (threshold 0.5): decode step "
+        f"{run_a['decode_step_ms']:.3f} / {run_ae['decode_step_ms']:.3f} ms (host "
+        f"clock), device {prof_a['device_ms_per_step']:.3f} / "
+        f"{prof_ae['device_ms_per_step']:.3f} ms per step, idle share "
+        f"{prof_a['device_idle_share']:.3f} / {prof_ae['device_idle_share']:.3f} in "
+        f"the profiled window ({prof_a['wall_ms_per_step']:.3f} / "
+        f"{prof_ae['wall_ms_per_step']:.3f} ms per step there), 1 - device / step "
+        f"{idle['graphs']:.3f} / {idle['eager']:.3f}, {run_a['tokens_per_s']:.1f} / "
+        f"{run_ae['tokens_per_s']:.1f} tokens/s")
     del srv
+    gc.collect()
     torch.cuda.empty_cache()
 
     cfg_b = dataclasses.replace(cfg0, exit_threshold=thr)
@@ -1541,14 +1893,22 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
           f"{name} median threshold, first step: main-head tokens equal on rows "
           f"that stay, away from near-ties (near-tie rows: "
           f"{(edge_b & stay).nonzero()[0].tolist()})")
-    run_b = serve(torch, srv, path.new_tokens, f"{name} threshold {thr:.6f}")
+    stamp(f"{name}: threshold 0.5 runs done; median threshold first steps checked")
+    # A forced overflow re-run at the third step: the hints pinned to 1.
+    run_b, run_be, _ = twin_runs(srv, cfg_b, f"{name} threshold {thr:.6f}", pin_at=2)
     check(run_b["exits"] > 0 and min(run_b["cloud_buckets"]) < SLOTS,
           f"{name} median threshold: rows exit on the edge and the cloud runs "
           f"compacted buckets {run_b['cloud_buckets']}")
+    check(run_b["overflow_retries"] >= 1,
+          f"{name} median threshold: the pinned hints forced "
+          f"{run_b['overflow_retries']} overflow re-runs, on both twins")
     launched(run_b, "median threshold")
+    runs = [run_a, run_b, run_ae, run_be]
+    if path.partition == "full":
+        runs += swap_phase(torch, srv, 16)
     del srv
+    gc.collect()
     torch.cuda.empty_cache()
-    runs = [run_a, run_b]
 
     if path.single_head:
         srv = server(cfg_b, wparams, heads_batched=False)
@@ -1567,7 +1927,8 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
     del wparams
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(arch=path.arch, runs=runs, profile=prof_a, threshold=thr,
+    return dict(arch=path.arch, runs=runs, profile=prof_a, profile_eager=prof_ae,
+                idle_from_step=idle, threshold=thr,
                 partition=partition,
                 admission_max_dlogit=dpre, admission_dlogit_bound=pre_tol,
                 first_step_max_dlogit=dlog, first_step_dlogit_bound=dlog_tol,
@@ -1750,8 +2111,13 @@ def main() -> int:
     kernels = (exit_kernel_phase(torch, dev, gen) + flash_kernel_phase(torch, dev, gen)
                + ssd_update_phase(torch, dev, gen) + ssd_scan_phase(torch, dev, gen))
     torch.cuda.empty_cache()
+    stamp("kernel phases done")
     alexnet = alexnet_phase(torch, dev)
-    e2e = [e2e_phase(torch, dev, path) for path in PATHS]
+    stamp("alexnet phase done")
+    e2e = []
+    for path in PATHS:
+        e2e.append(e2e_phase(torch, dev, path))
+        stamp(f"end to end {path.arch} done")
     for row in kernels:
         by_path = {r["arch"]: sum(run["launches"][row["name"]] for run in r["runs"])
                    for r in e2e}

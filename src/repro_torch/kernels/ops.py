@@ -23,6 +23,10 @@ A wrapper given CPU tensors runs the plain PyTorch version
 hand-written Hopper kernel or raises — there is no fallback.  Each wrapper
 adds one to ``launches[name]`` where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels.
+A CUDA-graph capture runs nothing: the serving runtime counts the
+launches made while it captures as recorded (:func:`recording`), and each
+replay of that graph adds them (:func:`add_launches`), so the counts stay
+what the card ran.
 
 ``use_kernels`` resolution (:func:`resolve_use_kernels`): None = kernels on
 a CUDA device, plain versions on the CPU; asking for the kernels (True, or
@@ -32,17 +36,21 @@ plain versions everywhere.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import ref
 
 __all__ = [
+    "add_launches",
     "entropy_exit",
     "entropy_exit_argmax",
     "entropy_exit_argmax_heads",
     "flash_decode",
     "launches",
     "on_cuda_sm90",
+    "recording",
     "reset_launches",
     "resolve_device",
     "resolve_use_kernels",
@@ -64,6 +72,27 @@ launches: dict[str, int] = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches made inside are recorded, not run (a CUDA-graph capture):
+    yields a dict that holds them per wrapper on exit, and leaves
+    ``launches`` as it was."""
+    before = dict(launches)
+    recorded: dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, n in before.items():
+            recorded[name] = launches[name] - n
+            launches[name] = n
+
+
+def add_launches(recorded: dict[str, int]) -> None:
+    """A replay of a captured graph ran the launches its capture recorded."""
+    for name, n in recorded.items():
+        launches[name] += n
 
 
 def on_cuda_sm90(device=None) -> bool:

@@ -54,7 +54,11 @@ def entropy_exit_argmax_heads_ref(
     against ``thresholds[k]`` (a scalar broadcasts to every head).
     Returns (entropy (K, B), exit (K, B) bool, argmax (K, B) int32)."""
     k = logits.shape[0]
-    th = torch.as_tensor(thresholds, dtype=torch.float32, device=logits.device)
+    if isinstance(thresholds, torch.Tensor):
+        th = thresholds.to(device=logits.device, dtype=torch.float32)
+    else:  # filled on the device: no host copy (a CUDA-graph capture has none)
+        th = torch.full((k,), float(thresholds), dtype=torch.float32,
+                        device=logits.device)
     th = th.reshape(-1).expand(k)
     h = normalized_entropy(logits)
     return h, h < th[:, None], torch.argmax(logits, dim=-1).to(torch.int32)

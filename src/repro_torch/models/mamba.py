@@ -219,7 +219,8 @@ def mamba_apply(
       * state, S == 1: the decode step, ``length += 1``.  ``rows`` (a
         device tensor) maps the compacted sub-batch onto state rows.  Under
         ``use_kernels`` the step is the Hopper ``ssd_update`` kernel,
-        updating its rows of the resident state in place."""
+        updating its rows of the resident state in place (a sentinel
+        row's output is zero there)."""
     inner, h, p, n, g, conv_dim = _dims(cfg)
     bsz, s, _ = x.shape
     dtype = x.dtype
@@ -259,6 +260,12 @@ def mamba_apply(
         if use_kernels:
             y1 = kernel_ops.ssd_update(state["ssm"], x_dt[:, 0], a_dt[:, 0],
                                        b_mat[:, 0], c_mat[:, 0], rows)
+            if rows is not None:
+                # A sentinel row reads state row Bc - 1 while that row's own
+                # update may be writing it in the same launch: its output,
+                # discarded by the caller, is zeroed so that the step stays
+                # a function of its inputs (bitwise from run to run).
+                y1 = torch.where((rows < bc)[:, None, None], y1, 0.0)
         else:
             h_prev = (state["ssm"] if rows is None
                       else state["ssm"][rows.long().clamp(max=bc - 1)])

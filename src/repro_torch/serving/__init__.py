@@ -5,8 +5,14 @@
     PartitionedServer            K=2 (the paper's edge/cloud system)
     MultiTierServer              K>=3 (core.multitier lattice plans)
     RequestScheduler             continuous-batching request lifecycle
+    RepartitionController        live p_k / network -> solver -> hot swap
 """
 
+from repro_torch.serving.controller import (
+    RepartitionController,
+    exit_distribution,
+    exit_drift_kl,
+)
 from repro_torch.serving.engine import ExitStats, ServingEngine
 from repro_torch.serving.multitier import MultiTierServer, MultiTierStepReport
 from repro_torch.serving.partitioned import PartitionedServer, StepReport
@@ -19,6 +25,7 @@ from repro_torch.serving.scheduler import (
 )
 from repro_torch.serving.tiers import (
     HopCompaction,
+    SegmentFn,
     TierExecutor,
     TierSegment,
     TierStepResult,
@@ -33,17 +40,21 @@ __all__ = [
     "MultiTierServer",
     "MultiTierStepReport",
     "PartitionedServer",
+    "RepartitionController",
     "Request",
     "RequestResult",
     "RequestScheduler",
     "SchedulerStepReport",
     "ServesRequests",
+    "SegmentFn",
     "ServingEngine",
     "StepReport",
     "TierExecutor",
     "TierSegment",
     "TierStepResult",
     "bytes_per_sequence",
+    "exit_distribution",
+    "exit_drift_kl",
     "segments_for_cuts",
     "transfer_seconds",
 ]

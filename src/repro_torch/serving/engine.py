@@ -112,7 +112,9 @@ class ServingEngine(ServesRequests):
 
         A sequence "exits" at the first branch whose normalized entropy
         clears cfg.exit_threshold; its emitted token comes from that branch
-        head (BranchyNet inference, paper Sec. III).
+        head (BranchyNet inference, paper Sec. III).  ``state["last_logits"]``
+        is the last step's own tensor (under CUDA graphs the executor hands
+        out a copy of the graph's output).
         """
         cfg = self.cfg
         k = len(cfg.branch_layers)

@@ -28,6 +28,7 @@ from repro_torch.serving.tiers import (
     HopCompaction,
     TierExecutor,
     TierStepResult,
+    measured_exit_probs,
     segments_for_cuts,
     transfer_seconds,
 )
@@ -46,6 +47,8 @@ class MultiTierStepReport:
     est_latency_s: float | None  # lattice cost model at the installed cuts
     compaction: tuple[HopCompaction, ...] = ()  # per-hop (survivors, bucket)
     branch_take: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+    # Sampled probe steps: layer -> rows whose probed head was evaluated.
+    branch_probe_mask: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
     overflow_retries: int = 0  # cumulative, executor-wide
     live: int = 0  # live request slots this step decoded (B in lock-step)
     tier_result: TierStepResult | None = None
@@ -132,6 +135,7 @@ class MultiTierServer(ServesRequests):
             est_latency_s=self._estimate(res),
             compaction=res.compaction,
             branch_take=res.branch_take,
+            branch_probe_mask=res.branch_probe_mask,
             overflow_retries=self.executor.overflow_retries,
             live=res.live,
             tier_result=res,
@@ -150,11 +154,8 @@ class MultiTierServer(ServesRequests):
         p = np.zeros(len(t_c))
         batch = res.tokens.shape[0]
         live = res.live or batch
-        alive = float(live)
-        for layer in sorted(res.branch_take):
-            took = float(res.branch_take[layer].sum())
-            p[layer] = took / alive if alive > 0 else 0.0
-            alive -= took
+        for layer, prob in measured_exit_probs(res).items():
+            p[layer] = prob
         bucketed = self.compaction == "bucketed"
         head_cost = (
             branch_head_cost(self.cfg, batch, heads_batched=self.heads_batched,

@@ -33,6 +33,7 @@ from repro_torch.serving.tiers import (
     HopCompaction,
     TierExecutor,
     TierStepResult,
+    measured_exit_probs,
     segments_for_cuts,
 )
 
@@ -48,6 +49,8 @@ class StepReport:
     est_latency_s: float | None  # paper Eq. 5 with the measured exit fraction
     compaction: tuple[HopCompaction, ...] = ()
     branch_take: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+    # Sampled probe steps: layer -> rows whose probed head was evaluated.
+    branch_probe_mask: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
     overflow_retries: int = 0  # cumulative, executor-wide
     live: int = 0
     tier_result: TierStepResult | None = None
@@ -73,6 +76,9 @@ class PartitionedServer(ServesRequests):
     bucket_headroom: float = 0.0
     slots: int = 8  # request-scheduler KV slots (submit/run/drain)
     context_len: int = 4096
+    # CUDA graphs per cached segment: None = on CUDA, eager on the CPU;
+    # False = eager on the card (the comparison baseline).
+    graphs: bool | None = None
 
     def __post_init__(self):
         self.executor = TierExecutor(
@@ -80,6 +86,7 @@ class PartitionedServer(ServesRequests):
             compaction=self.compaction, use_kernels=self.use_kernels,
             batched_heads=self.heads_batched, hint_window=self.hint_window,
             bucket_headroom=self.bucket_headroom, device=self.device,
+            graphs=self.graphs,
         )
         self.device = self.executor.device
         self.params = self.executor.params
@@ -104,6 +111,7 @@ class PartitionedServer(ServesRequests):
             est_latency_s=self._estimate(self.split_layer, res),
             compaction=res.compaction,
             branch_take=res.branch_take,
+            branch_probe_mask=res.branch_probe_mask,
             overflow_retries=self.executor.overflow_retries,
             live=res.live,
             tier_result=res,
@@ -117,8 +125,11 @@ class PartitionedServer(ServesRequests):
 
         Each branch's conditional probability comes from this step's
         first-exit masks (``res.branch_take``): exits at a branch over the
-        sequences still alive when they reached it.  A branch the installed
-        plan never evaluates (discarded at the cut, or downstream of it)
+        sequences still alive when they reached it
+        (:func:`~repro_torch.serving.tiers.measured_exit_probs`: a probe
+        step's overlapping would-exit masks keep p at or below 1, where the
+        reference's running count can pass 1 and raise).  A branch the
+        installed plan never evaluates (discarded at the cut, or downstream of it)
         reads p = 0: that is the probability the executed plan actually
         experiences.
 
@@ -134,12 +145,7 @@ class PartitionedServer(ServesRequests):
         batch = res.tokens.shape[0]
         live = res.live or batch
         if prof.branches:
-            alive = float(live)
-            measured: dict[int, float] = {}
-            for layer in sorted(res.branch_take):
-                took = float(res.branch_take[layer].sum())
-                measured[layer] = took / alive if alive > 0 else 0.0
-                alive -= took
+            measured = measured_exit_probs(res)
             branches = tuple(
                 dataclasses.replace(b, exit_prob=measured.get(b.after_layer, 0.0))
                 for b in prof.branches

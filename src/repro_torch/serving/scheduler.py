@@ -17,11 +17,20 @@ full-batch-resident KV rows:
 It keeps the runtime's two contracts: one device-to-host sync per decode
 step (admission leaves the first input token on the device), and each
 request's token/exit trajectory independent of its slot and neighbours.
-Admission is FIFO and continuous: any free slot takes the next request.
+The next step's input token is the step result's ``tokens_dev``, which
+the executor hands out as a tensor of its own (under CUDA graphs a clone
+of the graph's output), so admission may write into it.
+
+Admission is FIFO among arrived requests: ``policy="continuous"`` fills
+any free slot, ``policy="gang"`` admits only when every slot is free (the
+lock-step baseline).  ``submit(arrival_step=n)`` holds a request until the
+step clock (``step_count``, idle ticks included) reaches n; its TTFT and
+latency count from then.  ``on_step`` callbacks (the
+``RepartitionController.observe`` hook) get every decode step's tier
+result.
 
 Not ported yet (see ROADMAP.md): the fault plane's failed/degraded slots
-and re-queueing, simulated arrival steps, gang admission and step
-callbacks.
+and re-queueing (``requeue_on_fail``).
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +64,12 @@ class Request:
     rid: int = -1
     #: Retire at the first token that exits at a side branch.
     stop_on_exit: bool = False
+    #: Earliest step-clock value admission may happen at (0 = at once).
+    arrival_step: int = 0
+    #: When the request became admissible: submit() time, or the moment
+    #: the step clock reaches ``arrival_step``.
     arrival_s: float = 0.0
+    _arrived: bool = True  # arrival_s already stamped
 
 
 @dataclasses.dataclass
@@ -84,13 +98,15 @@ class SchedulerStepReport:
     admitted: tuple[int, ...]
     retired: tuple[int, ...]
     emitted: dict[int, int]
+    occupancy: float = 0.0  # live / slots
     server_report: Any = None
 
 
 class RequestScheduler:
     """Admission queue + slot allocator + decode loop over a tier server
     (anything exposing ``cfg``, ``executor`` and
-    ``step(tok, pos, caches, active=...)``)."""
+    ``step(tok, pos, caches, active=...)``).  ``on_step`` callbacks get
+    each decode step's tier result."""
 
     def __init__(
         self,
@@ -98,8 +114,12 @@ class RequestScheduler:
         slots: int,
         context_len: int,
         *,
+        policy: str = "continuous",
         reset_on_retire: bool = False,
+        on_step: Sequence[Callable[[Any], Any]] = (),
     ):
+        if policy not in ("continuous", "gang"):
+            raise ValueError(f"unknown admission policy: {policy!r}")
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         cfg = server.cfg
@@ -111,6 +131,8 @@ class RequestScheduler:
         self.cfg = cfg
         self.slots = slots
         self.context_len = context_len
+        self.policy = policy
+        self.on_step = list(on_step)
         #: Mark a retired request's cache row empty (``reset_rows``);
         #: admission resets its row anyway, so this is hygiene only.
         self.reset_on_retire = reset_on_retire
@@ -120,7 +142,8 @@ class RequestScheduler:
         self.tok_dev = torch.zeros((slots, 1), dtype=torch.int32,
                                    device=self.device)
         self.queue: collections.deque[Request] = collections.deque()
-        self.decode_steps = 0  # the step clock: one sync each
+        self.step_count = 0  # the step clock (idle arrival ticks included)
+        self.decode_steps = 0  # steps that decoded: one sync each
         self._next_rid = 0
         self._slot_req: list[Request | None] = [None] * slots
         self._remaining = np.zeros(slots, np.int64)
@@ -130,7 +153,7 @@ class RequestScheduler:
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new_tokens: int, *,
-               stop_on_exit: bool = False) -> int:
+               stop_on_exit: bool = False, arrival_step: int = 0) -> int:
         """Queue one request; returns its rid."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
@@ -145,7 +168,9 @@ class RequestScheduler:
         self._next_rid += 1
         self.queue.append(Request(
             prompt=prompt, max_new_tokens=int(max_new_tokens), rid=rid,
-            stop_on_exit=stop_on_exit, arrival_s=time.perf_counter(),
+            stop_on_exit=stop_on_exit, arrival_step=int(arrival_step),
+            arrival_s=time.perf_counter(),
+            _arrived=int(arrival_step) <= self.step_count,
         ))
         return rid
 
@@ -153,12 +178,31 @@ class RequestScheduler:
     def _free_slots(self) -> list[int]:
         return [s for s in range(self.slots) if not self.active[s]]
 
+    def _mark_arrivals(self) -> None:
+        """Stamp arrival_s when a held request's arrival step comes."""
+        now = None
+        for req in self.queue:
+            if not req._arrived and req.arrival_step <= self.step_count:
+                now = time.perf_counter() if now is None else now
+                req.arrival_s = now
+                req._arrived = True
+
     def _admit(self) -> tuple[int, ...]:
-        """FIFO; same-length prompts group into one prefill call padded up
-        the bucket ladder with sentinel rows."""
+        """FIFO among arrived requests (a held queue head blocks no later
+        arrival); same-length prompts group into one prefill call padded
+        up the bucket ladder with sentinel rows."""
         free = self._free_slots()
-        ready = [self.queue.popleft()
-                 for _ in range(min(len(free), len(self.queue)))]
+        if self.policy == "gang" and len(free) < self.slots:
+            return ()
+        ready: list[Request] = []
+        if free and self.queue:
+            waiting: collections.deque[Request] = collections.deque()
+            for req in self.queue:
+                if len(ready) < len(free) and req._arrived:
+                    ready.append(req)
+                else:
+                    waiting.append(req)
+            self.queue = waiting
         if not ready:
             return ()
         admitted = []
@@ -185,20 +229,25 @@ class RequestScheduler:
                 self._slot_req[slot] = req
                 self.results[req.rid] = RequestResult(
                     rid=req.rid, prompt_len=plen, tokens=[], exit_tiers=[],
-                    exited=[], slot=slot, admitted_step=self.decode_steps)
+                    exited=[], slot=slot, admitted_step=self.step_count)
                 admitted.append(req.rid)
         return tuple(admitted)
 
     # -------------------------------------------------------------- step
     def step(self) -> SchedulerStepReport | None:
         """Admit into freed rows, then run one decode step over the live
-        slots.  Returns None when there is nothing to decode."""
+        slots.  Returns None when there is nothing to decode (an idle tick
+        still advances the step clock toward held arrivals)."""
+        self._mark_arrivals()
         admitted = self._admit()
         if not self.active.any():
+            if self.queue:
+                self.step_count += 1
             return None
         rep, self.caches = self.server.step(
             self.tok_dev, self.pos.copy(), self.caches, active=self.active)
         now = time.perf_counter()
+        self.step_count += 1
         self.decode_steps += 1
         res = getattr(rep, "tier_result", rep)
         tokens = np.asarray(res.tokens)
@@ -224,7 +273,7 @@ class RequestScheduler:
             self.total_tokens += 1
             if self._remaining[slot] <= 0 or (req.stop_on_exit and exited[slot]):
                 r.done = True
-                r.retired_step = self.decode_steps
+                r.retired_step = self.step_count
                 r.latency_s = now - req.arrival_s
                 self.active[slot] = False
                 self._slot_req[slot] = None
@@ -236,13 +285,17 @@ class RequestScheduler:
             rows[: len(retired)] = [self.results[r].slot for r in retired]
             self.caches = self.executor.reset_rows(self.caches, rows)
         report = SchedulerStepReport(
-            step=self.decode_steps, live=live, admitted=admitted,
-            retired=tuple(retired), emitted=emitted, server_report=rep)
+            step=self.step_count, live=live, admitted=admitted,
+            retired=tuple(retired), emitted=emitted,
+            occupancy=live / self.slots, server_report=rep)
+        for cb in self.on_step:
+            cb(res)
         return report
 
     # --------------------------------------------------------------- run
     def run(self, max_steps: int | None = None) -> list[SchedulerStepReport]:
-        """Step until drained, or for ``max_steps`` decode steps."""
+        """Step until drained, or for ``max_steps`` decode steps (idle
+        ticks toward held arrivals do not count)."""
         out: list[SchedulerStepReport] = []
         while self.queue or self.active.any():
             if max_steps is not None and len(out) >= max_steps:
@@ -257,6 +310,12 @@ class RequestScheduler:
         self.run()
         return [self.results[rid] for rid in self.finished]
 
+    @property
+    def occupancy(self) -> float:
+        return float(self.active.sum()) / self.slots
+
+    def pending(self) -> int:
+        return len(self.queue)
 
 
 class ServesRequests:
@@ -273,9 +332,10 @@ class ServesRequests:
         return self._scheduler
 
     def submit(self, prompt, max_new_tokens: int, *,
-               stop_on_exit: bool = False) -> int:
+               stop_on_exit: bool = False, arrival_step: int = 0) -> int:
         return self.scheduler.submit(prompt, max_new_tokens,
-                                     stop_on_exit=stop_on_exit)
+                                     stop_on_exit=stop_on_exit,
+                                     arrival_step=arrival_step)
 
     def run(self, max_steps: int | None = None) -> list[SchedulerStepReport]:
         return self.scheduler.run(max_steps)

@@ -26,7 +26,9 @@ assert not bad, bad
 for name in ("repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b",
              "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
              "repro_torch.core.shortest_path", "repro_torch.core.profiler",
-             "repro_torch.serving.engine", "repro_torch.serving.multitier"):
+             "repro_torch.serving.engine", "repro_torch.serving.multitier",
+             "repro_torch.serving.controller", "repro_torch.examples.quickstart",
+             "repro_torch.examples.partition_sweep"):
     assert name in names, name
 """
 
@@ -37,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 35
+    assert n_modules >= 39
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
