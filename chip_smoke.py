@@ -29,8 +29,11 @@ exit) if any phase fails:
      scalar: V = 5003, 5002, logits 2 and 4 bytes off 16-byte alignment,
      bitwise equal to the aligned launch), with splits of pad lanes only and empty splits,
      each K=2 and K=3 head slice equal to its K=1 launch and each row to the
-     row alone, bit for bit;
-  4. end to end — three paths, each a ``PartitionedServer`` at full
+     row alone, bit for bit; Qwen3-8B's shapes too: the exit kernel at
+     V = 151,936 (K = 2 and 3, B = 8) and flash_decode at its serving
+     layout (Kh = 8, G = 4, D = 128, ~1,100 valid slots of 4096), each with
+     its device time and bound (and SDPA's GQA mode beside flash_decode);
+  4. end to end — four paths, each a ``PartitionedServer`` at full
      published width and depth with random weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
        * Phi-3-mini 3.8B (dense GQA), split 24, edge branches 8 and 16;
@@ -38,7 +41,9 @@ exit) if any phase fails:
          layer), split 24, edge branches 9 and 19, sites 6..24 on the edge
          and 30, 36 in the cloud;
        * Mamba2-130M (attention-free, tied embeddings, 152 vocabulary pad
-         lanes), split 18, edge branches 6 and 12.
+         lanes), split 18, edge branches 6 and 12;
+       * Qwen3-8B (dense GQA with qk-norm, bf16 params, vocabulary
+         151,936), split 20, edge branches 9 and 18.
      For each: the admission's last-position logits and the first decode
      step on the kernel path against the plain path (logits within 8 bf16
      ulps at their scale, pad lanes left out; a row whose first decode input
@@ -90,6 +95,23 @@ exit) if any phase fails:
      tensor bitwise equal.  Zamba2-1.2B's 38
      layers are profiled (the same checks; site layers against the first
      site layer) and one preset solved inside its e2e phase.
+  4b. link and faults (Qwen3-8B, on its resident weights) — split 20
+     served without simulation, then with ``simulate_network`` over an
+     uplink that ships the batch in one graphed step, serial and
+     pipelined, on the same requests (the hints pinned at the third step:
+     a forced re-run, paid serially by the pipelined server): tokens,
+     masks, bytes and sim seconds bitwise equal across the three, host
+     syncs = steps + re-runs, ``pipeline_fallbacks`` = re-runs, the step
+     ms of both modes printed beside device ms and ``est_latency_s``; a
+     zero uplink raises ``LinkDownError``; a benign fault model is bitwise
+     invisible; a link kill at split 18 degrades through head 18 (graphed
+     == eager twin bitwise, one sync per step, the degrade key captured
+     once and replayed, each forced token the argmax of head 18's logits);
+     at split 8 a kill fails the step with no sync, capture, replay or
+     launch and the slots are reclaimed, and with ``requeue_on_fail``
+     after a finite flap every request completes; K=3 on the example's
+     fault fleet: the breaker opens and the controller moves the cut off
+     the killed hop.
   6. alexnet (run after phase 3, before the end-to-end paths) — the
      paper's B-AlexNet at batch 1 in fp32, random weights from a seeded
      ``torch.Generator``, with cuDNN and cuBLAS TF32 switched on around
@@ -102,6 +124,9 @@ exit) if any phase fails:
      non-increasing in p and the split non-increasing in gamma on every
      curve and logging the profile-dependent claims; Dijkstra ==
      ``solve_chain_torch`` == the sweep at both ends of every Fig. 5 curve.
+
+  7. example — ``python -m repro_torch.examples.serve_partitioned`` on the
+     card at its smoke size, in a process of its own; it must exit 0.
 
 ``--log PATH`` also writes every printed line to PATH, whole, for runs
 whose output is cut to its end.  The line before the last is the JSON
@@ -158,6 +183,7 @@ class E2EPath:
     kernels: tuple[str, ...]
     single_head: bool = False
     partition: str = ""  # "full": profile, calibrate, solve, serve; "profile"
+    link: bool = False  # the link, pipelined overlap and the fault plane
 
 
 PATHS = (
@@ -169,6 +195,8 @@ PATHS = (
             partition="profile"),
     E2EPath("mamba2_130m", 18, 4, 6,
             ("ssd_update", "ssd_scan", "entropy_exit_argmax_heads")),
+    E2EPath("qwen3_8b", 20, NEW_TOKENS, 9,
+            ("flash_decode", "entropy_exit_argmax_heads"), link=True),
 )
 
 
@@ -456,6 +484,40 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
         e, _ = compare(f"entropy_exit_argmax_heads {label}", lg, th)
         worst = max(worst, e)
     check(widths == {1, 8}, f"every load width the launcher picks ran: {sorted(widths)}")
+    # Qwen3-8B's vocabulary (V = 151,936: 18,992 logits per cluster block)
+    # at the K=2 decision of its served edge and a K=3 pile (the degraded
+    # step's fallback joins the stack; the K=1 engine's three heads), from a
+    # generator of its own.
+    vq = 151936
+    lq = (torch.randn((3, b, vq), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 3), device=dev) * 4).to(torch.bfloat16)
+    thq = ref.entropy_exit_argmax_heads_ref(lq, 0.5)[0].median(dim=1).values.float()
+    log(f"entropy_exit: Qwen3-8B V={vq} in {split_plan(vq)[1]} splits of "
+        f"{split_plan(vq)[0]}")
+    qwen3 = {}
+    for kk in (2, 3):
+        lg, th = lq[:kk], thq[:kk]
+        e, out = compare(f"entropy_exit_argmax_heads Qwen3-8B K={kk} B={b}", lg, th)
+        worst = max(worst, e)
+        heads = all(same([o[h] for o in out],
+                         [o[0] for o in entropy_exit_argmax_heads_cuda(lg[h:h + 1],
+                                                                       th[h:h + 1])])
+                    for h in range(kk))
+        alone = all(same([o[h, i] for o in out],
+                         [o[0, 0] for o in entropy_exit_argmax_heads_cuda(
+                             lg[h, i:i + 1][None], th[h:h + 1])])
+                    for h in range(kk) for i in range(b))
+        torch.cuda.synchronize()
+        check(heads and alone, f"Qwen3-8B K={kk}: each head slice bitwise equal to its "
+              f"K=1 launch and each of the {kk * b} rows to the row launched alone")
+        ms, src, _ = device_ms(lambda lg=lg, th=th: entropy_exit_argmax_heads_cuda(lg, th),
+                               "entropy_exit_argmax_kernel")
+        bms, by = bound(lg.numel() * 2 + kk * 4 + kk * b * (4 + 1 + 4), 5 * lg.numel())
+        check(ms >= bms, f"Qwen3-8B K={kk}: device time {ms:.5f} ms not below its "
+              f"bound {bms:.5f} ms")
+        log(f"  entropy_exit_argmax_heads Qwen3-8B K={kk}: {ms:.4f} ms on the device "
+            f"({src}), bound {bms:.5f} ms ({by})")
+        qwen3[f"qwen3_k{kk}_ms"], qwen3[f"qwen3_k{kk}_bound_ms"] = ms, bms
     errs["entropy_exit_argmax_heads"] = worst
     rows = []
     for name, lg, th, replaces in main_cases:
@@ -466,7 +528,8 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
             "entropy_exit_argmax_kernel",
             lambda lg=lg, th=th: ref.entropy_exit_argmax_heads_ref(lg, th),
             nbytes=n * 2 + lg.shape[0] * 4 + lg.shape[0] * b * (4 + 1 + 4),
-            flops=5 * n))  # max, sub, exp, add, fma per element
+            flops=5 * n,  # max, sub, exp, add, fma per element
+            **(qwen3 if name == "entropy_exit_argmax_heads" else {})))
 
     # The no-argmax form: Zamba2's width, and Mamba2-130M's padded width
     # whose 152 pad lanes (-1e30) still count in the log-width normalizer.
@@ -511,12 +574,13 @@ def flash_case(torch, dev, gen, b, bc, c, kh, g, d, window, sentinel=True):
     return q, k, v, k_pos, q_pos, rows
 
 
-def serving_case(torch, dev, gen, b=SLOTS, c=CONTEXT, kh=32, d=96):
+def serving_case(torch, dev, gen, b=SLOTS, c=CONTEXT, kh=32, d=96, g=1):
     """The serving path's attention inputs: each of B rows holds its
     request's positions 0..q_pos in slots 0..q_pos (a 128-token prompt and
     up to 16 decoded tokens, q_pos in 128..143) and -1 beyond; the last
-    query row is the compacted runtime's out-of-bounds sentinel."""
-    q = torch.randn((b, kh, d), generator=gen, device=dev).to(torch.bfloat16)
+    query row is the compacted runtime's out-of-bounds sentinel.  ``g``
+    query heads share each of the ``kh`` KV heads."""
+    q = torch.randn((b, kh * g, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, c, kh, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, c, kh, d), generator=gen, device=dev).to(torch.bfloat16)
     q_pos = torch.randint(PROMPT, PROMPT + NEW_TOKENS, (b,), generator=gen,
@@ -533,6 +597,14 @@ def attn_bytes(q, k_pos, valid, kh, d):
     and K and V of the valid slots only."""
     b = q.shape[0]
     return 2 * q.numel() * 2 + k_pos[0].numel() * b * 4 + 2 * b * 4 + 2 * valid * kh * d * 2
+
+
+def attn_cost(q, k, k_pos, q_pos, rows):
+    """(bytes, operations) of one call: the valid slots' K and V read once
+    per KV head, two products of D per query head and valid slot."""
+    valid = valid_slots(k_pos, q_pos, rows)
+    kh, d = k.shape[2], q.shape[-1]
+    return attn_bytes(q, k_pos, valid, kh, d), 4 * valid * q.shape[1] * d
 
 
 def valid_slots(k_pos, q_pos, rows):
@@ -611,14 +683,17 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
 
     def sdpa_ms(q, k, v, k_pos, q_pos, rows):
         """Library yardstick, never called by the port: SDPA on gathered
-        rows with the validity mask."""
+        rows with the validity mask (its GQA mode where query heads share
+        KV heads)."""
         r = rows.long().clamp(max=k.shape[0] - 1)
         kg = k[r].permute(0, 2, 1, 3)  # (B, Kh, C, D)
         vg = v[r].permute(0, 2, 1, 3)
         kp = k_pos[r]
         mask = ((kp >= 0) & (kp <= q_pos[:, None].long()))[:, None, None, :]
         qs = q[:, :, None, :]
-        ms, _, _ = device_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
+        gqa = q.shape[1] != k.shape[2]
+        ms, _, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, enable_gqa=gqa))
         return ms
 
     split, splits = split_plan(CONTEXT)
@@ -669,18 +744,37 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     err = max(err, compare("B=1, all 4096 slots valid", one, 0))
     err = max(err, layout_sweep(torch, dev, gen))
 
+    # Qwen3-8B's serving layout: Kh = 8 KV heads of D = 128, G = 4 query
+    # heads on each (the FD_TRY(4, 8, 16, 1) instantiation), ~1,100 valid
+    # slots of 4096; four input sets (0.5 GB of cache) in turn.
+    qgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    qwen_sets = [serving_case(torch, dev, qgen, kh=8, d=128, g=4) for _ in range(4)]
+    qq, qk, qv, qkp, qqp, qrows = qwen_sets[0]
+    log(f"flash_decode: Qwen3-8B serving layout B=Bc={b} C={c} Kh=8 G=4 D=128 bf16, "
+        f"q_pos {qqp.tolist()}, one sentinel row")
+    err = max(err, compare("Qwen3-8B serving layout (Kh=8, G=4, D=128)", qwen_sets[0], 0))
+    whole = flash_decode_cuda(qq, qk, qv, qkp, qqp, qrows)
+    alone = torch.cat([flash_decode_cuda(qq[i:i + 1], qk, qv, qkp, qqp[i:i + 1],
+                                         qrows[i:i + 1]) for i in range(b)])
+    torch.cuda.synchronize()
+    check(bool(torch.equal(whole, alone)), "flash_decode Qwen3-8B layout: every row "
+          "of the batch of 8 bitwise equal to the row alone")
+
     def timed(args_sets, label):
         ms, _, _ = device_ms(rotating(flash_decode_cuda, args_sets), "flash_decode")
         q, k, v, k_pos, q_pos, rows = args_sets[0]
-        valid = valid_slots(k_pos, q_pos, rows)
-        bms, _ = bound(attn_bytes(q, k_pos, valid, kh, q.shape[-1]), 4 * valid * kh * q.shape[-1])
+        nbytes, flops = attn_cost(q, k, k_pos, q_pos, rows)
+        bms, _ = bound(nbytes, flops)
         log(f"  flash_decode {label}: {ms:.4f} ms on the device, bound {bms:.5f} ms "
-            f"over {valid} valid slots")
+            f"over {valid_slots(k_pos, q_pos, rows)} valid slots")
         return ms, bms
 
     phase_ms, phase_bound = timed([main], "phase shape")
     d64_ms, _ = timed([z], "D=64 (Zamba2)")
     b1_ms, b1_bound = timed([one], "B=1 full cache")
+    qwen_ms, qwen_bound = timed(qwen_sets, "Qwen3-8B serving layout")
+    qwen_lib = sdpa_ms(*qwen_sets[0])
+    log(f"  SDPA (GQA) on gathered rows at the Qwen3-8B layout: {qwen_lib:.4f} ms")
     lib = sdpa_ms(*serve_sets[0])
     phase_lib = sdpa_ms(*main)
     valid = valid_slots(skp, sqp, srows)
@@ -696,7 +790,9 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
         shape=f"serving: B=Bc={b} C={c} Kh={kh} D={d}, {valid} valid slots",
         phase_shape_ms=phase_ms, phase_shape_bound_ms=phase_bound,
         phase_shape_library_ms=phase_lib, d64_ms=d64_ms, b1_full_ms=b1_ms,
-        b1_full_bound_ms=b1_bound)]
+        b1_full_bound_ms=b1_bound, qwen3_ms=qwen_ms, qwen3_bound_ms=qwen_bound,
+        qwen3_library_ms=qwen_lib,
+        qwen3_valid_slots=valid_slots(qkp, qqp, qrows))]
 
 
 def ssd_inputs(torch, dev, gen, b, l, h, p, n, g, dtype=None, pad=0):
@@ -973,7 +1069,9 @@ def serve(torch, srv, n_tokens: int, label: str, trace: list | None = None,
     check(syncs == steps + retries,
           f"{label}: host syncs {syncs} == decode steps {steps} + overflow "
           f"retries {retries}")
-    last = reports[-1].server_report.tier_result.last_logits
+    # A degraded step runs no head tier: the last step that did.
+    last = next(r.server_report.tier_result.last_logits for r in reversed(reports)
+                if r.server_report.tier_result.last_logits is not None)
     check(bool(torch.isfinite(last).all()) and tuple(last.shape) ==
           (SLOTS, srv.cfg.padded_vocab_size), f"{label}: final logits finite, (8, V)")
     exits = sum(sum(r.exited) for r in results)
@@ -991,17 +1089,21 @@ def serve(torch, srv, n_tokens: int, label: str, trace: list | None = None,
                ttft_s=ttft, decode_step_ms=decode_ms,
                tokens_per_s=N_REQ * n_tokens / wall, cloud_buckets=buckets,
                overflow_retries=retries, captured=len(captured),
-               captured_keys=sorted(captured),
+               captured_keys=sorted(captured, key=repr),
                replays=sum(ex.replays.values()) - replays0)
     log(f"  {label}: {json.dumps(out)}")
     return out
 
 
-def same_runs(torch, trace_g: list, trace_e: list, label: str) -> None:
+def same_runs(torch, trace_g: list, trace_e: list, label: str, sim: bool = False,
+              what: str = "graphed run == eager twin") -> None:
     """A graphed run against its ``graphs=False`` twin (same weights,
-    prompts, budgets and fresh hints): every step's tokens, exit masks,
-    per-branch takes and entropies, main-head logits, buckets and overflow
-    re-runs bitwise equal.  The first difference is named."""
+    prompts, budgets and fresh hints), or two other runs that must agree
+    (``what``): every step's tokens, exit masks, per-branch takes and
+    entropies, main-head logits, bytes per hop, degraded and failed rows,
+    fault events, buckets and overflow re-runs bitwise equal, and with
+    ``sim`` the simulated transfer seconds.  The first difference is
+    named."""
     import numpy as np
 
     first = None
@@ -1015,15 +1117,25 @@ def same_runs(torch, trace_g: list, trace_e: list, label: str) -> None:
                        (f"branch {layer} entropy", a.branch_entropy[layer],
                         b.branch_entropy.get(layer))]
         diff = [n for n, x, y in fields if y is None or not np.array_equal(x, y)]
-        if not torch.equal(a.last_logits, b.last_logits):
+        for name in ("degraded", "failed"):
+            x, y = getattr(a, name), getattr(b, name)
+            if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+                diff.append(f"{name} rows")
+        la, lb = a.last_logits, b.last_logits
+        if (la is None) != (lb is None) or (la is not None and not torch.equal(la, lb)):
             diff.append("main-head logits")
+        if a.bytes_per_hop != b.bytes_per_hop or a.fault_events != b.fault_events:
+            diff.append("bytes per hop or fault events")
+        if sim and a.sim_transfer_s != b.sim_transfer_s:
+            diff.append("simulated transfer seconds")
         if (og, [c.bucket for c in a.compaction]) != (oe, [c.bucket for c in b.compaction]):
             diff.append("buckets or overflow re-runs")
         if diff and first is None:
             first = (i, diff)
     check(len(trace_g) == len(trace_e) and first is None,
-          f"{label}: graphed run == eager twin bitwise on all {len(trace_g)} steps "
-          f"(tokens, exit masks, takes, entropies, logits, buckets, re-runs)"
+          f"{label}: {what} bitwise on all {len(trace_g)} steps (tokens, exit masks, "
+          f"takes, entropies, logits, bytes, fault rows and events, buckets, re-runs"
+          + (", sim seconds)" if sim else ")")
           + ("" if first is None else f"; first difference at step {first[0]}: {first[1]}"))
 
 
@@ -1060,39 +1172,52 @@ def profile_decode(torch, srv, label: str, steps: int = 3) -> dict:
     steady decode steps (after admission and one warm step).  The window's
     device events of each kernel are checked equal to the launches the
     wrappers counted in it: under graphs those are the launches each
-    replayed capture recorded, so a graph that lost a kernel fails here."""
+    replayed capture recorded, so a graph that lost a kernel fails here.
+    torch.profiler now and then drops an event from a window (as
+    :func:`device_ms` finds); such a window is logged and another, on
+    fresh requests, is profiled, up to three in all: a kernel a graph lost
+    is missing from every window."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
 
-    for p in prompts(srv.cfg):
-        srv.submit(p, steps + 3)
-    srv.run(max_steps=2)
-    torch.cuda.synchronize()
-    before, replays = dict(ops.launches), sum(srv.executor.replays.values())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        srv.run(max_steps=steps)
+    windows = 3
+    for window in range(1, windows + 1):
+        for p in prompts(srv.cfg):
+            srv.submit(p, steps + 3)
+        srv.run(max_steps=2)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict[str, float] = {}
-    n_events: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            n_events[e.name] = n_events.get(e.name, 0) + 1
-    counted = {}
-    for names, kernels in LAUNCH_EVENTS.items():
-        names = (names,) if isinstance(names, str) else names
-        n = sum(ops.launches[k] - before[k] for k in names)
-        got = [sum(c for nm, c in n_events.items() if kern in nm) for kern in kernels]
-        counted[names[0]] = (n, got)
-    replays = sum(srv.executor.replays.values()) - replays
-    check(all(g == n for n, got in counted.values() for g in got),
+        before, replays = dict(ops.launches), sum(srv.executor.replays.values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.run(max_steps=steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name: dict[str, float] = {}
+        n_events: dict[str, int] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+                n_events[e.name] = n_events.get(e.name, 0) + 1
+        counted = {}
+        for names, kernels in LAUNCH_EVENTS.items():
+            names = (names,) if isinstance(names, str) else names
+            n = sum(ops.launches[k] - before[k] for k in names)
+            got = [sum(c for nm, c in n_events.items() if kern in nm) for kern in kernels]
+            counted[names[0]] = (n, got)
+        replays = sum(srv.executor.replays.values()) - replays
+        whole = all(g == n for n, got in counted.values() for g in got)
+        if whole or window == windows or not all(
+                g <= n for n, got in counted.values() for g in got):
+            break
+        srv.run()
+        log(f"  {label}: profiler window {window} lost device events {counted} "
+            f"(launches, [events]); profiling another window")
+    check(whole,
           f"{label}: over {steps} profiled decode steps ({replays} graph replays) "
           f"each kernel's device events equal the launches counted "
           f"{ {k: v for k, v in counted.items() if v[0]} } (launches, [events "
-          f"per kernel it runs])")
+          f"per kernel it runs]; window {window} of at most {windows})")
     srv.run()
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1924,15 +2049,367 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
         torch.cuda.empty_cache()
         part_runs, partition = partition_phase(torch, dev, path, cfg_b, wparams)
         runs += part_runs
+    link = None
+    if path.link:
+        gc.collect()
+        torch.cuda.empty_cache()
+        link_runs, link = link_phase(torch, dev, cfg_a, cfg_b, wparams,
+                                     run_a["decode_step_ms"], prof_a["device_ms_per_step"])
+        runs += link_runs
     del wparams
     gc.collect()
     torch.cuda.empty_cache()
     return dict(arch=path.arch, runs=runs, profile=prof_a, profile_eager=prof_ae,
                 idle_from_step=idle, threshold=thr,
-                partition=partition,
+                partition=partition, link=link,
                 admission_max_dlogit=dpre, admission_dlogit_bound=pre_tol,
                 first_step_max_dlogit=dlog, first_step_dlogit_bound=dlog_tol,
                 first_step_rows_compared=int(same_in.sum()))
+
+
+# ---------------------------------------------------------------- phase 4b
+#: The link phases' cuts on Qwen3-8B: split 20 keeps branches 9 and 18 on
+#: the edge; at 18 the branch sits at the cut (discarded, the fallback of a
+#: broken hop); 8 is below every branch.
+LINK_SPLIT, KILL_SPLIT, NO_HEAD_SPLIT = 20, 18, 8
+#: examples/serve_partitioned.py's fault fleet: edge -> wifi -> mid -> 4g -> cloud.
+FAULT_TIERS = (("edge", 12.0, 18.8e6), ("mid", 4.0, 5.85e6), ("cloud", 1.0))
+
+
+def server_at(cfg, wparams, split, dev, **kw):
+    from repro_torch.serving import PartitionedServer
+
+    return PartitionedServer(cfg, wparams, split, device=dev, slots=SLOTS,
+                             context_len=CONTEXT, **kw)
+
+
+def released(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def link_phase(torch, dev, cfg_a, cfg_b, wparams, step_ms: float,
+               device_ms: float) -> tuple[list, dict]:
+    """The edge-cloud link on the resident weights.  Split 20 over an uplink
+    that ships the full batch (8 x 8192 B) in one graphed step of the e2e
+    run: served without simulation, then ``simulate_network`` serial and
+    pipelined, on the same requests at threshold 0.5 (every row ships),
+    the hints pinned to 1 at the third step (a forced re-run, which a
+    pipelined server pays serially); a dead uplink; a benign fault model;
+    then :func:`fault_phases`."""
+    from repro_torch.core import LayerCost, NetworkProfile, build_cost_profile
+    from repro_torch.serving import LinkDownError, LinkFaultModel, bytes_per_sequence
+    from repro_torch.serving.tiers import TOKEN_ID_BYTES
+
+    name, n = cfg_a.name, cfg_a.num_layers
+    per_row = bytes_per_sequence(cfg_a, LINK_SPLIT)
+    bw = SLOTS * per_row * 8.0 / (step_ms / 1e3)
+    net = NetworkProfile("link", bw)
+    # The estimate's model: both tiers this card (gamma 1), each layer an
+    # equal share of the measured device step, the batch's residual per cut.
+    costs = [LayerCost(f"block{i}", 0.0, 0.0, per_row * SLOTS, device_ms / 1e3 / n)
+             for i in range(1, n + 1)]
+    prof = build_cost_profile(costs, cfg_a.branch_layers,
+                              [0.0] * len(cfg_a.branch_layers), net, 1.0,
+                              TOKEN_ID_BYTES * SLOTS)
+    log(f"link: {name} split {LINK_SPLIT}, uplink {bw / 1e6:.3f} Mb/s: the batch's "
+        f"{SLOTS} x {per_row:g} B in {step_ms:.3f} ms (the graphed step); est model "
+        f"{device_ms:.3f} ms of device time over {n} layers")
+    runs, traces, out = [], {}, dict(uplink_bps=bw)
+    for mode in ("off", "serial", "pipelined"):
+        srv = server_at(cfg_a, wparams, LINK_SPLIT, dev, network=net, cost_profile=prof,
+                        simulate_network=mode != "off",
+                        overlap="pipelined" if mode == "pipelined" else "serial")
+        trace = traces[mode] = []
+        run = serve(torch, srv, NEW_TOKENS, f"{name} link {mode}", trace, pin_at=2)
+        run["pipeline_fallbacks"] = srv.executor.pipeline_fallbacks
+        sim = [sum(r.sim_transfer_s) * 1e3 for r, *_ in trace]
+        out[mode] = dict(step_ms=run["decode_step_ms"], wall_s=run["wall_s"],
+                         est_ms_median=statistics.median(
+                             r.est_latency_s * 1e3 for r, *_ in trace),
+                         sim_ms_median=statistics.median(sim),
+                         overflow_retries=run["overflow_retries"],
+                         pipeline_fallbacks=run["pipeline_fallbacks"])
+        if mode != "off":
+            check(all(r.sim_transfer_s == (r.bytes_shipped * 8.0 / bw,)
+                      for r, *_ in trace),
+                  f"{name} link {mode}: sim_transfer_s == bytes x 8 / uplink every step")
+        runs.append(run)
+        del srv
+        released(torch)
+    same_runs(torch, traces["serial"], traces["pipelined"], f"{name} link", sim=True,
+              what="serial run == pipelined run")
+    same_runs(torch, traces["off"], traces["serial"], f"{name} link",
+              what="run without simulation == serial run")
+    check(out["pipelined"]["pipeline_fallbacks"] == out["pipelined"]["overflow_retries"]
+          >= 1 and out["serial"]["pipeline_fallbacks"] == 0,
+          f"{name} link: the pipelined server paid its {out['pipelined']['overflow_retries']} "
+          f"forced re-run(s) serially (pipeline_fallbacks "
+          f"{out['pipelined']['pipeline_fallbacks']}); serial none")
+    log(f"  {name} link step (host clock, median): no simulation "
+        f"{out['off']['step_ms']:.3f} ms, serial {out['serial']['step_ms']:.3f} ms, "
+        f"pipelined {out['pipelined']['step_ms']:.3f} ms; transfer "
+        f"{out['serial']['sim_ms_median']:.3f} ms; device {device_ms:.3f} ms per step; "
+        f"est_latency_s {out['serial']['est_ms_median']:.4f} / "
+        f"{out['pipelined']['est_ms_median']:.4f} ms (serial / pipelined)")
+
+    # A dead uplink with bytes to ship and no fault model raises.
+    dead = server_at(cfg_a, wparams, LINK_SPLIT, dev,
+                     network=NetworkProfile("dead", 0.0), simulate_network=True)
+    for p in prompts(cfg_a):
+        dead.submit(p, 2)
+    try:
+        dead.run(max_steps=1)
+        raised = ""
+    except LinkDownError as e:
+        raised = str(e)
+    check("hop 0" in raised, f"{name}: a zero uplink with bytes to ship raises "
+          f"LinkDownError ({raised!r})")
+    del dead
+    released(torch)
+
+    # A benign fault model (no flaps, drops or spikes, multiplier 1).
+    srv = server_at(cfg_a, wparams, LINK_SPLIT, dev, network=net, cost_profile=prof,
+                    simulate_network=True, fault_model=LinkFaultModel(seed=0))
+    trace = []
+    runs.append(serve(torch, srv, NEW_TOKENS, f"{name} benign fault model", trace,
+                      pin_at=2))
+    same_runs(torch, traces["serial"], trace, f"{name} benign fault model", sim=True,
+              what="run with the model == serial run without it")
+    del srv, traces, trace
+    released(torch)
+    fault_runs, out["faults"] = fault_phases(torch, dev, cfg_b, wparams, net)
+    return runs + fault_runs, out
+
+
+def fault_phases(torch, dev, cfg, wparams, net) -> tuple[list, dict]:
+    """The fault plane at full width, at the median threshold:
+
+      * a link kill at split 18 (hop 0 down from fault step 4): every live
+        row not exited at branch 9 is finalized from branch 18, the head at
+        the cut; graphed against a ``graphs=False`` twin bitwise through
+        the run, one sync per step, the degrade key captured once and then
+        replayed, and each degraded row's token the argmax of head 18's
+        logits (recorded from the twin's stacked projection);
+      * split 8, below every branch: a kill fails the step with no dispatch,
+        no fetch and no launch, and the scheduler reclaims every slot; with
+        ``requeue_on_fail`` and a finite flap every request completes;
+      * K=3 (the example's edge, mid, cloud) with the mid -> cloud hop
+        killed: the breaker opens, the controller re-solves and the cut
+        moves off the hop."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import FlapWindow, HopPolicy, LinkFaultModel, tiers
+
+    name, out, runs = cfg.name, {}, []
+    kill = LinkFaultModel(seed=0, flaps=(FlapWindow(hop=0, start_step=4,
+                                                    end_step=10_000),))
+    policy = HopPolicy(timeout_s=0.05, max_retries=1, backoff_s=0.001,
+                       breaker_threshold=2, breaker_cooldown_steps=1000)
+    traces, records = {}, []
+    # The eager twin's stacked head projections, by step: (step, layers,
+    # (K, B, V) logits); an overflow re-run's come last.
+    rec = dict(trace=None)
+    stacked = tiers.branch_logits_stacked
+
+    def recording(params, got, cfg_, layers):
+        ls, lg = stacked(params, got, cfg_, layers)
+        if lg is not None and rec["trace"] is not None:
+            records.append((len(rec["trace"]), tuple(ls), lg[:, :, 0].clone()))
+        return ls, lg
+
+    tiers.branch_logits_stacked = recording
+    try:
+        for graphs in (None, False):
+            srv = server_at(cfg, wparams, KILL_SPLIT, dev, network=net,
+                            simulate_network=True, fault_model=kill, hop_policy=policy,
+                            graphs=graphs)
+            trace = traces[graphs] = []
+            rec["trace"] = trace if graphs is False else None
+            label = f"{name} link kill at split {KILL_SPLIT}" + (
+                ", eager twin" if graphs is False else "")
+            run = serve(torch, srv, NEW_TOKENS, label, trace)
+            statuses = sorted({r.status for r in srv.scheduler.results.values()})
+            run["statuses"] = statuses
+            if graphs is None:
+                ex = srv.executor
+                deg_keys = {k: n for k, n in ex.trace_counts.items() if k[0][6] is not None}
+                deg_replays = sum(ex.replays.get(k, 0) for k in deg_keys)
+                check(deg_keys and {k[0][6] for k in deg_keys} == {18}
+                      and all(n == 1 for n in deg_keys.values()) and deg_replays > 0,
+                      f"{label}: the degrade keys {sorted(deg_keys)} (fallback head 18) "
+                      f"captured once each, then replayed {deg_replays} times")
+                out["kill"] = dict(step_ms=run["decode_step_ms"],
+                                   degraded_steps=ex.degraded_steps,
+                                   fault_retries=ex.fault_retries, statuses=statuses)
+            runs.append(run)
+            del srv
+            released(torch)
+    finally:
+        tiers.branch_logits_stacked = stacked
+    same_runs(torch, traces[None], traces[False], f"{name} link kill")
+    degraded = [(i, r.tier_result) for i, (r, *_) in enumerate(traces[False])
+                if r.tier_result.degraded_hop is not None]
+    check(len(degraded) == NEW_TOKENS - 4 and all(
+        syncs == 1 + retries for _, _, syncs, retries in traces[None]),
+          f"{name} link kill: {len(degraded)} degraded steps (fault steps 4 on), one "
+          f"host sync per step plus re-runs")
+    forced = 0
+    for i, res in degraded:
+        ls, lg = [(ls, lg) for step, ls, lg in records if step == i and 18 in ls][-1]
+        want = lg[ls.index(18)].argmax(-1).to(torch.int32).cpu().numpy()
+        rows = res.degraded
+        forced += int(rows.sum())
+        ok = (np.array_equal(res.tokens[rows], want[rows])
+              and (res.exit_tier[rows] == 0).all()
+              and not any((t & rows).any() for t in res.branch_take.values()))
+        check(ok, f"{name} link kill, step {i}: the {int(rows.sum())} degraded rows "
+              f"emit head 18's argmax (torch.argmax over its logits), exit tier 0, "
+              f"no branch take")
+    out["kill"]["forced_rows"] = forced
+    check(forced > 0 and set(out["kill"]["statuses"]) <= {"ok", "degraded"},
+          f"{name} link kill: {forced} rows forced through head 18; every request "
+          f"completed ({out['kill']['statuses']})")
+    del traces, records
+    released(torch)
+
+    # Split 8: no exit head below the hop.
+    flat = HopPolicy(timeout_s=0.05, max_retries=0, breaker_threshold=100)
+    srv = server_at(cfg, wparams, NO_HEAD_SPLIT, dev, network=net, simulate_network=True,
+                    fault_model=LinkFaultModel(seed=0, flaps=(FlapWindow(0, 2, 10_000),)),
+                    hop_policy=flat)
+    ex, sched = srv.executor, srv.scheduler
+    for p in prompts(cfg):
+        srv.submit(p, NEW_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    failed_steps = []
+    while sched.queue or sched.active.any():
+        before = (ex.host_syncs, dict(ex.trace_counts), sum(ex.replays.values()),
+                  dict(ops.launches))
+        rep = srv.run(max_steps=1)[0]
+        if rep.failed:
+            failed_steps.append((ex.host_syncs, dict(ex.trace_counts),
+                                 sum(ex.replays.values()), dict(ops.launches)) == before)
+    torch.cuda.synchronize()
+    runs.append(dict(label=f"{name} no head below the hop", launches=dict(ops.launches)))
+    results = list(sched.results.values())
+    check(failed_steps and all(failed_steps)
+          and all(r.done and r.status == "failed" and len(r.tokens) == 2 for r in results)
+          and not sched.active.any() and all(r is None for r in sched._slot_req),
+          f"{name} split {NO_HEAD_SPLIT}: {len(failed_steps)} failed step(s) with no "
+          f"sync, no capture, no replay and no launch; all {len(results)} requests "
+          f"retired failed after 2 tokens; every slot reclaimed")
+    del srv, ex, sched
+    released(torch)
+    from repro_torch.serving import RequestScheduler
+
+    srv = server_at(cfg, wparams, NO_HEAD_SPLIT, dev, network=net, simulate_network=True,
+                    fault_model=LinkFaultModel(seed=0, flaps=(FlapWindow(0, 2, 5),)),
+                    hop_policy=flat)
+    sched = RequestScheduler(srv, SLOTS, CONTEXT, requeue_on_fail=True, max_requeues=8)
+    for p in prompts(cfg):
+        sched.submit(p, NEW_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    reps = sched.run()
+    torch.cuda.synchronize()
+    runs.append(dict(label=f"{name} requeue after a finite flap",
+                     launches=dict(ops.launches)))
+    results = [sched.results[r] for r in sorted(sched.results)]
+    check(any(r.failed for r in reps) and all(
+        r.done and r.status == "ok" and len(r.tokens) == NEW_TOKENS for r in results),
+          f"{name} split {NO_HEAD_SPLIT}, flap over fault steps 2-4 with requeue_on_fail: "
+          f"{sum(bool(r.failed) for r in reps)} failed step(s), then all "
+          f"{len(results)} requests completed with {NEW_TOKENS} tokens")
+    out["no_head"] = dict(failed_steps=len(failed_steps),
+                          requeue_failed_steps=sum(bool(r.failed) for r in reps))
+    del srv, sched, reps
+    released(torch)
+    k3_runs, out["controller"] = controller_fault_phase(torch, dev, cfg, wparams)
+    return runs + k3_runs, out
+
+
+def controller_fault_phase(torch, dev, cfg, wparams) -> tuple[list, dict]:
+    """K=3 on the example's fault fleet at cuts (10, 20) (branch 9 on the
+    edge, 18 on the mid tier), the mid -> cloud hop down from fault step 3:
+    retries exhaust, the breaker opens, the rows finalize from head 18, and
+    the ``RepartitionController`` on the scheduler's ``on_step`` hook
+    re-solves with the hop's availability at 0, so the new cuts ship
+    nothing across it."""
+    import numpy as np
+
+    from repro_torch.core import LayerCost, TierSpec, build_cost_profile
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        FlapWindow,
+        HopPolicy,
+        LinkFaultModel,
+        MultiTierServer,
+        RepartitionController,
+        RequestScheduler,
+    )
+
+    n = cfg.num_layers
+    tiers = [TierSpec(*t) for t in FAULT_TIERS]
+    # The example's uniform cost stub.
+    costs = [LayerCost(f"block{i}", 0, 0, cfg.d_model * 2.0, 1.5e-3)
+             for i in range(1, n + 1)]
+    prof = build_cost_profile(costs, cfg.branch_layers, np.zeros(len(cfg.branch_layers)),
+                              "3g", GAMMA, RAW_INPUT_BYTES)
+    # The deadline admits the full batch's 8 x 8192 B on the 5.85 Mb/s hop
+    # (90 ms) when it is up.
+    srv = MultiTierServer(
+        cfg, wparams, tiers, (10, 20), simulate_network=True, device=dev,
+        slots=SLOTS, context_len=CONTEXT,
+        fault_model=LinkFaultModel(seed=0, flaps=(FlapWindow(1, 3, 10_000),)),
+        hop_policy=HopPolicy(timeout_s=0.2, max_retries=1, backoff_s=0.002,
+                             breaker_threshold=2))
+    ctl = RepartitionController(srv, prof, tiers=list(tiers))
+    sched = RequestScheduler(srv, SLOTS, CONTEXT, on_step=[ctl.observe])
+    for p in prompts(cfg):
+        sched.submit(p, NEW_TOKENS)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    reps = sched.run()
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    events = [e.kind for r in reps for e in r.server_report.fault_events]
+    results = [sched.results[r] for r in sorted(sched.results)]
+    check("breaker_open" in events and ctl.fault_resolves >= 1 and srv.cuts[1] == n
+          and srv.tiers[1].availability == 0.0
+          and all(r.done and len(r.tokens) == NEW_TOKENS for r in results),
+          f"{cfg.name} K=3 fault fleet: hop mid->cloud killed at fault step 3, the "
+          f"breaker opened, the controller re-solved {ctl.fault_resolves} time(s) and "
+          f"moved the cuts (10, 20) -> {srv.cuts}; all {len(results)} requests "
+          f"completed ({sum(r.degraded_tokens for r in results)} tokens degraded)")
+    out = dict(cuts=list(srv.cuts), fault_resolves=ctl.fault_resolves,
+               hop_health={str(k): v for k, v in ctl.hop_health().items()},
+               degraded_tokens=sum(r.degraded_tokens for r in results))
+    del srv, ctl, sched, reps
+    released(torch)
+    return [dict(label=f"{cfg.name} K=3 fault fleet under the controller",
+                 launches=launches)], out
+
+
+def example_phase() -> dict:
+    """``python -m repro_torch.examples.serve_partitioned`` on the card at
+    its smoke size, in a process of its own: its own asserts (the breaker
+    opens, the controller re-solves, the last cut moves to the trunk's
+    end) must hold and it must exit 0."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.examples.serve_partitioned"],
+                          env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-12:]:
+        log(f"  | {line}")
+    check(proc.returncode == 0, f"the serve_partitioned example exited "
+          f"{proc.returncode} on the card in {secs:.1f} s")
+    return dict(seconds=secs, returncode=proc.returncode)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2118,6 +2595,8 @@ def main() -> int:
     for path in PATHS:
         e2e.append(e2e_phase(torch, dev, path))
         stamp(f"end to end {path.arch} done")
+    example = example_phase()
+    stamp("serve_partitioned example done")
     for row in kernels:
         by_path = {r["arch"]: sum(run["launches"][row["name"]] for run in r["runs"])
                    for r in e2e}
@@ -2127,7 +2606,7 @@ def main() -> int:
         row["launches_per_decode_step"] = {
             r["arch"]: r["runs"][0]["launches"][row["name"]] / steps[r["arch"]]
             for r in e2e}
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, alexnet=alexnet, paths=e2e))}")
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, alexnet=alexnet, paths=e2e, example=example))}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

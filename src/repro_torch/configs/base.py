@@ -135,12 +135,14 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
 
-ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b")
+ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b",
+                             "qwen3_8b")
 
 _ALIAS = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "mamba2-130m": "mamba2_130m",
     "zamba2-1.2b": "zamba2_1_2b",
+    "qwen3-8b": "qwen3_8b",
 }
 
 

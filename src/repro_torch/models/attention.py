@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import flash_decode_ref
-from repro_torch.models.layers import apply_rope, dense
+from repro_torch.models.layers import apply_rope, dense, rmsnorm
 
 __all__ = [
     "attn_apply",
@@ -266,7 +266,10 @@ def attn_apply(
     k = dense(params["wk"], x, dtype).reshape(b, s, kh, hd)
     v = dense(params["wv"], x, dtype).reshape(b, s, kh, hd)
     if cfg.use_qk_norm:
-        raise NotImplementedError("the port has no qk-norm attention yet")
+        # Qwen3: each head normalized over head_dim before RoPE, so the
+        # cache holds normalized, rotated keys (prefill and decode alike).
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     qg = q.reshape(b, s, kh, g, hd)

@@ -96,11 +96,12 @@ def _total_layers(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------- init
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """Random fp32 params drawn from ``generator`` (which must live on
+    """Random params drawn from ``generator`` (which must live on
     ``device``, by default the current CUDA device): fan-in scaled
     truncated normals for the projections (the Mamba2 mixer's own
     distributions in :func:`repro_torch.models.mamba.mamba_init`),
-    N(0, 0.02^2) for the embedding and LM head, unit norm scales."""
+    N(0, 0.02^2) for the embedding and LM head, unit norm scales; fp32,
+    or bf16 under ``param_dtype="bfloat16"``."""
     layout = trunk_layout(cfg)
     device = resolve_device(device)
     d, v = cfg.d_model, cfg.padded_vocab_size
@@ -108,19 +109,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def normal(*shape, std):
         return torch.randn(shape, generator=generator, device=device).mul_(std)
 
-    params = {"embed": normal(v, d, std=0.02)}
+    # param_dtype "bfloat16" (Qwen3-8B and the >100B configs): every leaf
+    # lives in bf16, as the reference casts its tree; each part is cast as
+    # it is drawn, so the fp32 draw of one part is the peak.
+    def keep(tree):
+        return (cast_tree(tree, torch.bfloat16) if cfg.param_dtype == "bfloat16"
+                else tree)
+
+    params = {"embed": keep(normal(v, d, std=0.02))}
     for name, kind, n in layout:
-        params[name] = stack_init(cfg, kind, n, generator, device)
+        params[name] = keep(stack_init(cfg, kind, n, generator, device))
     if cfg.arch_type == "hybrid":
-        params["shared_attn"] = layer_slice(
-            stack_init(cfg, _SHARED_ATTN_KIND, 1, generator, device), 0)
-    params["final_norm"] = {"scale": torch.ones(d, device=device)}
+        params["shared_attn"] = keep(layer_slice(
+            stack_init(cfg, _SHARED_ATTN_KIND, 1, generator, device), 0))
+    params["final_norm"] = keep({"scale": torch.ones(d, device=device)})
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(d, v, std=0.02)
+        params["lm_head"] = keep(normal(d, v, std=0.02))
     if cfg.branch_layers:
-        params["branches"] = {
-            "scale": torch.ones(len(cfg.branch_layers), d, device=device)}
+        params["branches"] = keep({
+            "scale": torch.ones(len(cfg.branch_layers), d, device=device)})
     return params
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """Every leaf of a params tree (or one tensor) as ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 def compute_params(params: dict, dtype=torch.bfloat16) -> dict:

@@ -73,6 +73,9 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
             "wv": proj(d, cfg.kv_dim),
             "wo": proj(cfg.q_dim, d),
         }
+        if cfg.use_qk_norm:  # Qwen3: RMSNorm of each q and k head
+            p["attn"]["q_norm"] = {"scale": ones(cfg.head_dim)}
+            p["attn"]["k_norm"] = {"scale": ones(cfg.head_dim)}
     else:
         p["mamba"] = mamba_mod.mamba_init(cfg, n, generator, device)
     if kind.mlp == "dense":

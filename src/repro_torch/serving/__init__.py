@@ -5,7 +5,10 @@
     PartitionedServer            K=2 (the paper's edge/cloud system)
     MultiTierServer              K>=3 (core.multitier lattice plans)
     RequestScheduler             continuous-batching request lifecycle
-    RepartitionController        live p_k / network -> solver -> hot swap
+    RepartitionController        live p_k / network / hop health -> solver
+                                 -> hot swap
+    LinkFaultModel / HopPolicy   seeded hop faults + retry / breaker policy
+                                 (degraded steps, the edge fallback)
 """
 
 from repro_torch.serving.controller import (
@@ -14,6 +17,14 @@ from repro_torch.serving.controller import (
     exit_drift_kl,
 )
 from repro_torch.serving.engine import ExitStats, ServingEngine
+from repro_torch.serving.faults import (
+    CircuitBreaker,
+    FaultEvent,
+    FlapWindow,
+    HopPolicy,
+    LinkDownError,
+    LinkFaultModel,
+)
 from repro_torch.serving.multitier import MultiTierServer, MultiTierStepReport
 from repro_torch.serving.partitioned import PartitionedServer, StepReport
 from repro_torch.serving.scheduler import (
@@ -35,7 +46,13 @@ from repro_torch.serving.tiers import (
 )
 
 __all__ = [
+    "CircuitBreaker",
     "ExitStats",
+    "FaultEvent",
+    "FlapWindow",
+    "HopPolicy",
+    "LinkDownError",
+    "LinkFaultModel",
     "HopCompaction",
     "MultiTierServer",
     "MultiTierStepReport",

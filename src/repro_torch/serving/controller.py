@@ -28,16 +28,22 @@ width) prices the steady-state live batch.  ``explore_every_n`` schedules
 probe steps (every branch head evaluated, report-only) so branches the
 plan discards keep measured probabilities; ``probe_sample_frac`` samples
 them on part of the batch, and ``observe`` counts a probed branch's
-arrivals over the covered rows only.
+arrivals over the covered rows only.  A server running
+``overlap="pipelined"`` is re-solved against the pipeline's bottleneck
+stage (``overlap=True`` in ``core.multitier``): the best cut can move when
+transfers overlap compute.
 
-Not ported yet (see ROADMAP.md): hop health — the fault plane's per-hop
-EWMAs, ``hop_health`` / ``apply_hop_health`` and the re-solve on a
-breaker change (``_ingest_faults``, ``fault_resolves``) — waits for the
-fault plane; the pipeline-bottleneck re-solve of an
-``overlap="pipelined"`` server waits for pipelined overlap.  The link
-reaches the port's 2-tier server through its cost profile
-(``update_network`` replaces it); ``PartitionedServer.network`` and the
-segment uplinks come with link simulation.
+Hop health (the fault plane): ``observe`` folds each step's
+``fault_events`` and ``degraded_hop`` into per-hop EWMAs — availability
+(the success fraction of *attempted* hops) and the simulated transfer
+seconds of successful shipments — and on a breaker opening or closing
+re-solves at once with each hop's ``TierSpec.availability`` from the EWMA
+(0 for an open breaker, which the solver prices as an unusable link), so
+the cut moves off the sick hop (``fault_resolves`` counts these).  A hop
+the breaker skipped is not an observation, and a failed half-open probe
+moves availability only, never the transfer estimate.
+``fault_resolve=False`` keeps the ingestion and leaves the re-solve to
+:meth:`RepartitionController.apply_hop_health`.
 """
 
 from __future__ import annotations
@@ -95,6 +101,8 @@ class RepartitionController:
     explore_every_n: int = 0  # probe-step cadence (0 = no exploration)
     probe_sample_frac: float = 1.0  # rows a probe step samples
     occupancy: float | None = None  # None = track the observed live width
+    hop_alpha: float = 0.3  # EWMA weight of a hop-health observation
+    fault_resolve: bool = True  # re-solve on a breaker state change
 
     def __post_init__(self):
         if isinstance(self.server, MultiTierServer) and self.tiers is None:
@@ -112,6 +120,13 @@ class RepartitionController:
         self._window_age = 0
         self._installed_p: np.ndarray | None = None
         self._occ_est: float | None = None
+        # Per-hop health by hop index (a tier boundary, stable across
+        # repartitions): availability EWMA over attempted hops, transfer
+        # seconds EWMA over successful non-empty shipments, open breakers.
+        self._hop_avail: dict[int, float] = {}
+        self._hop_xfer: dict[int, float] = {}
+        self._hop_open: set[int] = set()
+        self.fault_resolves = 0
 
     # ------------------------------------------------------------ solving
     def _solve_occupancy(self) -> float | None:
@@ -124,26 +139,36 @@ class RepartitionController:
 
     def solve(self, p_k: np.ndarray) -> tuple[int, ...]:
         """Optimal cut vector for the profile with exit probs ``p_k``: the
-        lattice for K>=3, the bucketed lattice for a compacting 2-tier
-        server when ``batch`` is set, else the paper's Dijkstra."""
+        lattice for K>=3; for a 2-tier server the lattice when it
+        pipelines, compacts (with ``batch`` set) or its uplink's health is
+        below 1, else the paper's Dijkstra.  A pipelined server is solved
+        against the bottleneck stage."""
         prof = Partitioner(self.profile).with_exit_probs(p_k).profile
         occ = self._solve_occupancy()
+        overlap = self.server.overlap == "pipelined"
         if isinstance(self.server, MultiTierServer):
             plan = solve_multitier(
                 prof.t_c, prof.alpha, prof.branch_exit_probs(), self.tiers,
-                batch=self.batch,
+                batch=self.batch, overlap=overlap,
                 occupancy=occ if self.batch is not None else None,
             )
             return plan.cut_after
-        if self.batch is not None and self.server.compaction == "bucketed":
+        bucketed = self.batch is not None and self.server.compaction == "bucketed"
+        avail = 0.0 if 0 in self._hop_open else self._hop_avail.get(0, 1.0)
+        if overlap or bucketed or avail < 1.0:
             # Route through the lattice cost so the installed cut optimizes
-            # the padding-honest objective the server's est_latency_s
-            # reports (branch-head compute aside, as in the paper's Eq. 5).
-            tiers = [TierSpec("edge", prof.gamma, prof.network.bandwidth_bps),
+            # the objective the server's est_latency_s reports (bottleneck
+            # stage under overlap, padding-honest under compaction;
+            # branch-head compute aside, as in the paper's Eq. 5); the
+            # edge's uplink carries its availability (0 = breaker open,
+            # an unusable link: the cut moves to all-edge).
+            tiers = [TierSpec("edge", prof.gamma, prof.network.bandwidth_bps,
+                              availability=avail),
                      TierSpec("cloud", 1.0)]
             plan = solve_multitier(
                 prof.t_c, prof.alpha, prof.branch_exit_probs(), tiers,
-                batch=self.batch, occupancy=occ,
+                batch=self.batch if bucketed else None, overlap=overlap,
+                occupancy=occ if bucketed else None,
             )
             return plan.cut_after
         return (Partitioner(prof).solve().split_layer,)
@@ -209,9 +234,81 @@ class RepartitionController:
             self._arrivals *= 0.5
             self._exits *= 0.5
             self._window_age = 0
+        fault_cuts = self._ingest_faults(report)
+        if fault_cuts is not None:
+            # A breaker change re-solved (and reset the drift window): it
+            # takes the place of this step's drift check.
+            return fault_cuts
         if self.every_n_steps and self._steps_observed % self.every_n_steps == 0:
             return self.maybe_update()
         return None
+
+    # -------------------------------------------------------- hop health
+    def _ingest_faults(self, report) -> tuple[int, ...] | None:
+        """Fold one step's fault-plane outputs into the per-hop EWMAs and
+        re-solve on a breaker state change.  Only attempted hops are
+        observations: a breaker-skipped hop and the hops past the broken
+        one are not.  Transfer seconds come from successful non-empty
+        shipments only."""
+        events = getattr(report, "fault_events", None) or ()
+        broken = getattr(report, "degraded_hop", None)
+        if not events and broken is None:
+            return None
+        skipped = {e.hop for e in events if e.kind == "breaker_skip"}
+        failed_hops = {e.hop for e in events if e.kind == "exhausted"}
+        nb = getattr(report, "bytes_per_hop", ()) or ()
+        sim = getattr(report, "sim_transfer_s", ()) or ()
+        a = self.hop_alpha
+        for j in range(len(nb)):
+            if j in skipped or (broken is not None and j > broken):
+                continue  # not attempted: no observation
+            ok = j not in failed_hops
+            self._hop_avail[j] = (1.0 - a) * self._hop_avail.get(j, 1.0) + a * ok
+            if ok and float(nb[j]) > 0 and j < len(sim) and sim[j] > 0:
+                prev = self._hop_xfer.get(j)
+                self._hop_xfer[j] = (float(sim[j]) if prev is None
+                                     else (1.0 - a) * prev + a * float(sim[j]))
+        resolve = False
+        for e in events:
+            if e.kind == "breaker_open" and e.hop not in self._hop_open:
+                self._hop_open.add(e.hop)
+                resolve = True
+            elif e.kind == "breaker_closed" and e.hop in self._hop_open:
+                self._hop_open.discard(e.hop)
+                # The link recovered: price it healthy, not at the EWMA
+                # tail of the outage.
+                self._hop_avail[e.hop] = 1.0
+                resolve = True
+        if resolve and self.fault_resolve:
+            return self.apply_hop_health()
+        return None
+
+    def hop_health(self) -> dict[int, dict[str, float | bool | None]]:
+        """Per hop: availability EWMA, transfer-seconds EWMA (None before a
+        successful shipment), and whether its breaker is open."""
+        hops = set(self._hop_avail) | set(self._hop_xfer) | self._hop_open
+        return {j: {"availability": self._hop_avail.get(j, 1.0),
+                    "transfer_s": self._hop_xfer.get(j),
+                    "open": j in self._hop_open}
+                for j in sorted(hops)}
+
+    def apply_hop_health(self) -> tuple[int, ...]:
+        """Re-solve with each hop's availability from the health EWMAs (0
+        for an open breaker) and install the result.  K>=3 goes through
+        :meth:`update_tiers` (the drift window resets); a 2-tier server's
+        availability reaches the solve through the lattice route of
+        :meth:`solve`.  Once the cut leaves a sick hop its breaker is never
+        probed again: recovery needs an explicit ``update_tiers``."""
+        self.fault_resolves += 1
+        if isinstance(self.server, MultiTierServer):
+            last = len(self.tiers) - 1
+            return self.update_tiers([
+                dataclasses.replace(t, availability=(
+                    0.0 if j in self._hop_open
+                    else self._hop_avail.get(j, t.availability)))
+                if j < last else t
+                for j, t in enumerate(self.tiers)])
+        return self._install(self._best_p())
 
     def measured_probs(self) -> np.ndarray:
         """Conditional p_k per branch from the observed window; a branch
@@ -249,11 +346,13 @@ class RepartitionController:
         if not isinstance(self.server, PartitionedServer):
             raise TypeError("update_network is 2-tier; use update_tiers for K>=3")
         self.profile = dataclasses.replace(self.profile, network=network)
+        self.server.network = network
         if self.server.cost_profile is not None:
             self.server.cost_profile = self.profile
         cuts = self._install(self._best_p())
-        # A topology change restarts the executor's plan (as the reference's
-        # segment refresh does), reusing every cached segment function.
+        # Refresh the segments even when the cut did not move: the new
+        # uplink must reach the executor's link accounting (every cached
+        # segment function is reused).
         self.server.executor.install(self.server._segments(self.server.split_layer))
         return cuts
 

@@ -9,7 +9,10 @@ layer->tier assignment; this server *executes* it on the
 tier, exit masking on the device, survivors shipped across every hop, and
 per-hop byte accounting against each :class:`TierSpec`'s uplink.
 
-With K=2 this is exactly the paper's ``PartitionedServer``.
+With K=2 this is exactly the paper's ``PartitionedServer``.  Each
+``TierSpec.uplink_bps`` is its segment's uplink: ``simulate_network``,
+``overlap`` and the fault plane (``fault_model`` / ``hop_policy``) work as
+on the K=2 server (see :mod:`repro_torch.serving.tiers`).
 """
 
 from __future__ import annotations
@@ -49,9 +52,18 @@ class MultiTierStepReport:
     branch_take: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
     # Sampled probe steps: layer -> rows whose probed head was evaluated.
     branch_probe_mask: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+    sim_transfer_s: tuple[float, ...] = ()  # simulated uplink time per hop
     overflow_retries: int = 0  # cumulative, executor-wide
+    pipeline_fallbacks: int = 0  # cumulative: pipelined steps paid serially
     live: int = 0  # live request slots this step decoded (B in lock-step)
     tier_result: TierStepResult | None = None
+    #: The fault plane's outputs: rows finalized from the fallback head,
+    #: rows that could not emit, the step's fault trace, and the broken hop
+    #: (None = healthy step).
+    degraded: np.ndarray | None = None
+    failed: np.ndarray | None = None
+    fault_events: tuple = ()
+    degraded_hop: int | None = None
 
 
 @dataclasses.dataclass
@@ -63,6 +75,8 @@ class MultiTierServer(ServesRequests):
     cost: tuple[np.ndarray, np.ndarray] | None = None  # (t_c, alpha) estimates
     device: Any = None  # None = the current CUDA device (raises without one)
     compaction: str = "bucketed"  # "off" = masked full-batch tiers
+    simulate_network: bool = False  # sleep each hop's transfer time
+    overlap: str = "serial"  # "pipelined" = overlap transfers with compute
     use_kernels: bool | None = None  # None = cfg, then auto
     # One stacked exit decision per tier; the same knob selects the
     # branch-head pricing mode when ``price_heads`` adds the head term to
@@ -73,6 +87,11 @@ class MultiTierServer(ServesRequests):
     bucket_headroom: float = 0.0
     slots: int = 8  # request-scheduler KV slots (submit/run/drain)
     context_len: int = 4096
+    # The fault plane (serving.faults): a seeded LinkFaultModel arms hop
+    # faults, breaker-gated retries and exit-head degradation; hop_policy
+    # sets the retry, timeout and breaker knobs.
+    fault_model: Any = None
+    hop_policy: Any = None
 
     def __post_init__(self):
         self.tiers = tuple(self.tiers)
@@ -82,6 +101,8 @@ class MultiTierServer(ServesRequests):
             compaction=self.compaction, use_kernels=self.use_kernels,
             batched_heads=self.heads_batched, hint_window=self.hint_window,
             bucket_headroom=self.bucket_headroom, device=self.device,
+            simulate_network=self.simulate_network, overlap=self.overlap,
+            fault_model=self.fault_model, hop_policy=self.hop_policy,
         )
         self.device = self.executor.device
         self.params = self.executor.params
@@ -109,7 +130,8 @@ class MultiTierServer(ServesRequests):
 
     def _segments(self, cuts: tuple[int, ...]):
         return segments_for_cuts(self.cfg, cuts,
-                                 names=tuple(t.name for t in self.tiers))
+                                 names=tuple(t.name for t in self.tiers),
+                                 uplinks=tuple(t.uplink_bps for t in self.tiers))
 
     def install_cuts(self, cuts: Sequence[int]) -> None:
         """Move the hop points at run time."""
@@ -136,9 +158,15 @@ class MultiTierServer(ServesRequests):
             compaction=res.compaction,
             branch_take=res.branch_take,
             branch_probe_mask=res.branch_probe_mask,
+            sim_transfer_s=res.sim_transfer_s,
             overflow_retries=self.executor.overflow_retries,
+            pipeline_fallbacks=self.executor.pipeline_fallbacks,
             live=res.live,
             tier_result=res,
+            degraded=res.degraded,
+            failed=res.failed,
+            fault_events=res.fault_events,
+            degraded_hop=res.degraded_hop,
         )
         return rep, caches
 
@@ -146,8 +174,9 @@ class MultiTierServer(ServesRequests):
         """Lattice cost model (core.multitier) at the installed cuts with
         the *measured* per-branch exit fractions substituted for p.  When
         the runtime compacts, the estimate uses the bucketed cost so it is
-        honest about padding waste; the step's live width feeds the
-        occupancy term under continuous batching."""
+        honest about padding waste; when it pipelines, the overlap cost so
+        it reports the steady-state bottleneck stage.  The step's live
+        width feeds the occupancy term under continuous batching."""
         if self.cost is None:
             return None
         t_c, alpha = self.cost
@@ -165,6 +194,7 @@ class MultiTierServer(ServesRequests):
         return expected_time_multitier(
             t_c, alpha, p, list(self.tiers), self.cuts,
             batch=batch if bucketed else None,
+            overlap=self.overlap == "pipelined",
             occupancy=live / batch if bucketed else None,
             head_cost=head_cost,
             branch_layers=self.cfg.branch_layers,

@@ -12,7 +12,14 @@ segments and an explicit tensor handoff.
 
 With a ``cost_profile``, every step reports ``est_latency_s``: the paper's
 Eq. 5 at the installed split with this step's measured exit probabilities,
-or the lattice cost of the compacted runtime (``compaction="bucketed"``).
+or the lattice cost of the compacted (``compaction="bucketed"``) or
+pipelined (``overlap="pipelined"``) runtime.
+
+``network`` sets the edge's uplink: ``simulate_network`` then sleeps each
+step's transfer over it, serially or pipelined (``overlap``), and
+``fault_model`` / ``hop_policy`` arm the fault plane, whose degraded and
+failed rows each ``StepReport`` carries (see
+:mod:`repro_torch.serving.tiers`).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.latency import expected_time
 from repro_torch.core.multitier import TierSpec, expected_time_multitier
 from repro_torch.core.profiler import H100_SXM, branch_head_cost
-from repro_torch.core.types import CostProfile
+from repro_torch.core.types import CostProfile, NetworkProfile
 from repro_torch.serving.scheduler import ServesRequests
 from repro_torch.serving.tiers import (
     HopCompaction,
@@ -51,9 +58,20 @@ class StepReport:
     branch_take: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
     # Sampled probe steps: layer -> rows whose probed head was evaluated.
     branch_probe_mask: dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
-    overflow_retries: int = 0  # cumulative, executor-wide
+    sim_transfer_s: tuple[float, ...] = ()  # simulated uplink time per hop
+    # Cumulative, executor-wide: steps re-run on a bucket overflow, and
+    # pipelined steps paid serially.
+    overflow_retries: int = 0
+    pipeline_fallbacks: int = 0
     live: int = 0
     tier_result: TierStepResult | None = None
+    #: The fault plane's outputs: rows finalized from the edge's fallback
+    #: head, rows that could not emit, the step's fault trace, and the
+    #: broken hop (None = healthy step).
+    degraded: np.ndarray | None = None
+    failed: np.ndarray | None = None
+    fault_events: tuple = ()
+    degraded_hop: int | None = None
 
 
 @dataclasses.dataclass
@@ -61,9 +79,12 @@ class PartitionedServer(ServesRequests):
     cfg: ModelConfig
     params: Any
     split_layer: int  # the plan's v_s (0 = cloud-only, L = edge-only)
+    network: NetworkProfile | None = None  # the edge's uplink
     cost_profile: CostProfile | None = None  # for latency estimates
     device: Any = None  # None = the current CUDA device (raises without one)
     compaction: str = "bucketed"  # "off" = masked full-batch cloud
+    simulate_network: bool = False  # sleep each hop's transfer time
+    overlap: str = "serial"  # "pipelined" = overlap transfers with compute
     use_kernels: bool | None = None  # None = cfg, then auto
     # One stacked exit decision per tier; the same knob selects the
     # branch-head pricing mode (core.profiler.branch_head_cost) when
@@ -79,6 +100,11 @@ class PartitionedServer(ServesRequests):
     # CUDA graphs per cached segment: None = on CUDA, eager on the CPU;
     # False = eager on the card (the comparison baseline).
     graphs: bool | None = None
+    # The fault plane (serving.faults): a seeded LinkFaultModel arms hop
+    # faults, breaker-gated retries and edge-head degradation; hop_policy
+    # sets the retry, timeout and breaker knobs.
+    fault_model: Any = None
+    hop_policy: Any = None
 
     def __post_init__(self):
         self.executor = TierExecutor(
@@ -86,13 +112,17 @@ class PartitionedServer(ServesRequests):
             compaction=self.compaction, use_kernels=self.use_kernels,
             batched_heads=self.heads_batched, hint_window=self.hint_window,
             bucket_headroom=self.bucket_headroom, device=self.device,
-            graphs=self.graphs,
+            graphs=self.graphs, simulate_network=self.simulate_network,
+            overlap=self.overlap, fault_model=self.fault_model,
+            hop_policy=self.hop_policy,
         )
         self.device = self.executor.device
         self.params = self.executor.params
 
     def _segments(self, s: int):
-        return segments_for_cuts(self.cfg, (s,), names=("edge", "cloud"))
+        return segments_for_cuts(
+            self.cfg, (s,), names=("edge", "cloud"),
+            uplinks=(self.network.bandwidth_bps,) if self.network else None)
 
     def set_split(self, split_layer: int) -> None:
         """Move the cut at run time."""
@@ -112,9 +142,15 @@ class PartitionedServer(ServesRequests):
             compaction=res.compaction,
             branch_take=res.branch_take,
             branch_probe_mask=res.branch_probe_mask,
+            sim_transfer_s=res.sim_transfer_s,
             overflow_retries=self.executor.overflow_retries,
+            pipeline_fallbacks=self.executor.pipeline_fallbacks,
             live=res.live,
             tier_result=res,
+            degraded=res.degraded,
+            failed=res.failed,
+            fault_events=res.fault_events,
+            degraded_hop=res.degraded_hop,
         )
         return rep, caches
 
@@ -133,12 +169,13 @@ class PartitionedServer(ServesRequests):
         reads p = 0: that is the probability the executed plan actually
         experiences.
 
-        When the runtime compacts (``compaction="bucketed"``) the estimate
-        uses the lattice cost of the bucketed runtime, so K=2 reports the
-        same padding-honest number as ``MultiTierServer`` rather than the
-        ideal serial ``surv(s) * B`` cloud term; the step's live width
-        feeds the occupancy term, so under continuous batching it prices
-        the steady-state live batch rather than the nominal one."""
+        When the runtime compacts (``compaction="bucketed"``) or pipelines
+        (``overlap="pipelined"``) the estimate uses the lattice cost, so
+        K=2 reports the same padding-honest, bottleneck-stage number as
+        ``MultiTierServer`` rather than the ideal serial ``surv(s) * B``
+        cloud term; under compaction the step's live width feeds the
+        occupancy term, so under continuous batching it prices the
+        steady-state live batch rather than the nominal one."""
         if self.cost_profile is None:
             return None
         prof = self.cost_profile
@@ -151,7 +188,9 @@ class PartitionedServer(ServesRequests):
                 for b in prof.branches
             )
             prof = dataclasses.replace(prof, branches=branches)
-        if self.compaction == "bucketed" and prof.network is not None:
+        bucketed = self.compaction == "bucketed"
+        pipelined = self.overlap == "pipelined"
+        if (bucketed or pipelined) and prof.network is not None:
             tiers = [TierSpec("edge", prof.gamma, prof.network.bandwidth_bps),
                      TierSpec("cloud", 1.0)]
             head_cost = (
@@ -161,7 +200,8 @@ class PartitionedServer(ServesRequests):
             )
             return expected_time_multitier(
                 prof.t_c, prof.alpha, prof.branch_exit_probs(), tiers, (s,),
-                batch=batch, occupancy=live / batch, head_cost=head_cost,
-                branch_layers=self.cfg.branch_layers,
+                batch=batch if bucketed else None, overlap=pipelined,
+                occupancy=live / batch if bucketed else None,
+                head_cost=head_cost, branch_layers=self.cfg.branch_layers,
             )
         return expected_time(prof, s)

@@ -29,8 +29,12 @@ latency count from then.  ``on_step`` callbacks (the
 ``RepartitionController.observe`` hook) get every decode step's tier
 result.
 
-Not ported yet (see ROADMAP.md): the fault plane's failed/degraded slots
-and re-queueing (``requeue_on_fail``).
+Under the fault plane a step may finalize rows from a fallback head below
+a broken hop (``degraded``: the token is real, the request's
+``degraded_tokens`` counts it and it retires ``"degraded"``) or fail them
+(``failed``: no token).  A failed slot is always reclaimed; its request
+retires ``"failed"``, or with ``requeue_on_fail`` goes back to the head of
+the queue (at most ``max_requeues`` times) for a fresh admission.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ class Request:
     #: the step clock reaches ``arrival_step``.
     arrival_s: float = 0.0
     _arrived: bool = True  # arrival_s already stamped
+    _requeues: int = 0  # times re-queued after a failed slot
 
 
 @dataclasses.dataclass
@@ -87,6 +92,12 @@ class RequestResult:
     ttft_s: float | None = None  # arrival -> first decoded token on host
     latency_s: float | None = None  # arrival -> retirement
     done: bool = False
+    #: "ok"; "degraded" (finished with >= 1 token from a fallback head);
+    #: "failed" (a failed slot ended it, requeues spent or off);
+    #: "requeued" (the request went back to the queue; a fresh result
+    #: replaces this one at its re-admission).
+    status: str = "ok"
+    degraded_tokens: int = 0  # tokens finalized from a fallback head
 
 
 @dataclasses.dataclass
@@ -100,6 +111,10 @@ class SchedulerStepReport:
     emitted: dict[int, int]
     occupancy: float = 0.0  # live / slots
     server_report: Any = None
+    #: rids whose token this step came from a fallback head, and rids
+    #: whose slot failed (retired failed, or re-queued).
+    degraded: tuple[int, ...] = ()
+    failed: tuple[int, ...] = ()
 
 
 class RequestScheduler:
@@ -117,6 +132,8 @@ class RequestScheduler:
         policy: str = "continuous",
         reset_on_retire: bool = False,
         on_step: Sequence[Callable[[Any], Any]] = (),
+        requeue_on_fail: bool = False,
+        max_requeues: int = 1,
     ):
         if policy not in ("continuous", "gang"):
             raise ValueError(f"unknown admission policy: {policy!r}")
@@ -136,6 +153,11 @@ class RequestScheduler:
         #: Mark a retired request's cache row empty (``reset_rows``);
         #: admission resets its row anyway, so this is hygiene only.
         self.reset_on_retire = reset_on_retire
+        #: A request whose slot fails goes back to the queue head instead of
+        #: retiring failed, up to ``max_requeues`` times; its slot is
+        #: reclaimed either way.
+        self.requeue_on_fail = requeue_on_fail
+        self.max_requeues = max_requeues
         self.caches = M.init_caches(cfg, slots, context_len, device=self.device)
         self.pos = np.zeros(slots, np.int32)  # next decode position per slot
         self.active = np.zeros(slots, bool)
@@ -253,19 +275,44 @@ class RequestScheduler:
         tokens = np.asarray(res.tokens)
         exited = np.asarray(res.exited)
         exit_tier = np.asarray(res.exit_tier)
+        deg_mask = getattr(res, "degraded", None)
+        fail_mask = getattr(res, "failed", None)
         self.tok_dev = res.tokens_dev[:, None]
 
         emitted: dict[int, int] = {}
         retired: list[int] = []
+        degraded: list[int] = []
+        failed: list[int] = []
         live = int(self.active.sum())
         for slot in np.flatnonzero(self.active):
             req = self._slot_req[slot]
             r = self.results[req.rid]
+            if fail_mask is not None and fail_mask[slot]:
+                # No token this step: the slot is reclaimed, and the request
+                # re-queues (a fresh admission) or retires failed.
+                self.active[slot] = False
+                self._slot_req[slot] = None
+                failed.append(req.rid)
+                if self.requeue_on_fail and req._requeues < self.max_requeues:
+                    req._requeues += 1
+                    r.status = "requeued"
+                    self.queue.appendleft(req)
+                else:
+                    r.done = True
+                    r.status = "failed"
+                    r.retired_step = self.step_count
+                    r.latency_s = now - req.arrival_s
+                    self.finished.append(req.rid)
+                    retired.append(req.rid)
+                continue
             tok = int(tokens[slot])
             emitted[req.rid] = tok
             r.tokens.append(tok)
             r.exited.append(bool(exited[slot]))
             r.exit_tiers.append(int(exit_tier[slot]))
+            if deg_mask is not None and deg_mask[slot]:
+                r.degraded_tokens += 1
+                degraded.append(req.rid)
             if r.ttft_s is None:
                 r.ttft_s = now - req.arrival_s
             self.pos[slot] += 1
@@ -273,6 +320,7 @@ class RequestScheduler:
             self.total_tokens += 1
             if self._remaining[slot] <= 0 or (req.stop_on_exit and exited[slot]):
                 r.done = True
+                r.status = "degraded" if r.degraded_tokens else "ok"
                 r.retired_step = self.step_count
                 r.latency_s = now - req.arrival_s
                 self.active[slot] = False
@@ -287,7 +335,8 @@ class RequestScheduler:
         report = SchedulerStepReport(
             step=self.step_count, live=live, admitted=admitted,
             retired=tuple(retired), emitted=emitted,
-            occupancy=live / self.slots, server_report=rep)
+            occupancy=live / self.slots, server_report=rep,
+            degraded=tuple(degraded), failed=tuple(failed))
         for cb in self.on_step:
             cb(res)
         return report

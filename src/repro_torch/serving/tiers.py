@@ -37,8 +37,9 @@ What the port changes, and why:
 
   * **CUDA graphs in place of jit.**  A segment function is cached per
     ``(spec, bucket)`` as the reference jits one (:class:`SegmentFn`; the
-    key is ``((layer_lo, layer_hi, branches, head, probe, probe_m),
-    bucket)``), and ``install`` reuses every entry whose key is unchanged.
+    key is ``((layer_lo, layer_hi, branches, head, probe, probe_m,
+    degrade), bucket)``), and ``install`` reuses every entry whose key is
+    unchanged.
     A variant is built per argument signature (the shape of ``pos``, a
     lock-step scalar or a per-row vector; the batch; the caches' layout),
     as jit traces per argument shapes, and ``trace_counts`` counts the
@@ -96,8 +97,56 @@ sample of live rows and reports the covered rows in
 ``TierStepResult.branch_probe_mask``.  Probe keys are cached and captured
 like any other.
 
-Not ported yet (see ROADMAP.md): mesh-sharded segments, the fault plane
-and degraded steps, ``overlap="pipelined"`` and ``simulate_network``.
+Link simulation (``simulate_network``): each segment carries its uplink
+(``TierSegment.uplink_bps``, bits/s); after the step's one fetch the host
+sleeps each hop's ``shipped bytes * 8 / uplink_bps`` and reports it in
+``TierStepResult.sim_transfer_s``, so the step's wall time pays the link.
+A hop that must ship bytes over an unset or zero uplink raises
+:class:`~repro_torch.serving.faults.LinkDownError` when no fault model is
+attached (a dead link is never priced free).
+
+Pipelined overlap (``overlap="pipelined"``), as in the reference: only
+the simulated sleeps are pipelined, never the computation.  Each hop has a
+host link clock; hop j's transfer of token t starts when its payload has
+cleared hop j-1 and the link has finished token t-1's transfer, and a step
+returns once the *previous* step's transfers have drained (double-buffer
+depth 1), so the steady step is ``max(compute, max_j transfer_j)`` instead
+of their sum.  The graph replays are already asynchronous to the host, so
+no CUDA stream or event is involved.  Tokens, masks, bytes and
+``sim_transfer_s`` are bitwise those of serial mode.  An overflow re-run
+or a degraded or failed step drains the pipeline and pays its transfers
+serially (``pipeline_fallbacks``); ``install`` and :meth:`drain` drain it.
+
+Fault plane (``fault_model`` / ``hop_policy``; a policy alone arms a
+benign :class:`~repro_torch.serving.faults.LinkFaultModel`):
+
+  * **Phase A**, on the host before any dispatch and without a sync
+    (:meth:`TierExecutor._plan_hops`): every hop the plan crosses is
+    checked in order — its circuit breaker, then up to ``1 + max_retries``
+    attempts against the step's seeded draw, the deadline judged on the
+    full-batch payload — so the decision depends on ``(seed, fault step,
+    hop)`` only and replays bit for bit.
+  * A broken hop degrades the step: it runs only up to the segment holding
+    the deepest exit head at or below the broken hop's cut (a branch at
+    the cut, which a healthy plan discards, included), and every live row
+    not already exited is finalized from that head's argmax.  That
+    terminal segment is a key of its own, ``((lo, hi, branches, head,
+    probe, probe_m, degrade), bucket)``, captured and replayed like any
+    other; the fallback head joins the segment's stacked exit heads, and
+    the segment bumps the cache clock the absent head tier would have.  A
+    degraded step still makes one sync; its forced rows are reported in
+    ``degraded`` (``exit_tier`` = the fallback tier) and never in
+    ``branch_take``.
+  * With no exit head at or below the broken hop, the step dispatches
+    nothing and fetches nothing: every live row is reported ``failed``.
+  * Under ``simulate_network`` the hops that held charge their
+    (multiplier-scaled, spike-added) transfer plus the overhead of failed
+    attempts; a broken hop charges only that overhead.
+
+A benign model (no flaps, drops or spikes, multiplier 1) leaves every
+token, mask, cache write and byte count bitwise as without it.
+
+Not ported yet (see ROADMAP.md): mesh-sharded segments.
 """
 
 from __future__ import annotations
@@ -105,6 +154,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -127,9 +177,19 @@ from repro_torch.models.model import (
     run_trunk,
     trunk_layout,
 )
+from repro_torch.serving.faults import (
+    CircuitBreaker,
+    FaultEvent,
+    HopOutcome,
+    HopPolicy,
+    LinkDownError,
+    LinkFaultModel,
+    attempt_hop,
+)
 
 __all__ = [
     "HopCompaction",
+    "LinkDownError",
     "SegmentFn",
     "TierExecutor",
     "TierSegment",
@@ -149,12 +209,14 @@ TOKEN_ID_BYTES = 4.0
 @dataclasses.dataclass(frozen=True)
 class TierSegment:
     """One tier's share of the trunk: layers ``[layer_lo, layer_hi)``
-    (absolute, 0-based) and the 1-based branch points it evaluates."""
+    (absolute, 0-based), the 1-based branch points it evaluates, and the
+    uplink to the next tier (bits/s; None on the last tier)."""
 
     name: str
     layer_lo: int
     layer_hi: int
     branches: tuple[int, ...] = ()
+    uplink_bps: float | None = None
 
     @property
     def is_empty(self) -> bool:
@@ -179,8 +241,10 @@ class HopCompaction:
 
 def transfer_seconds(nbytes: float, uplink_bps: float | None) -> float:
     """Wall seconds to ship ``nbytes`` over a hop; an unset/zero uplink
-    reports 0.0 (the hop is unaccounted, not priced: the cost model prices
-    an unusable hop infinite)."""
+    reports 0.0 for byte accounting (the cost model prices an unusable hop
+    infinite).  The ``simulate_network`` step never prices a dead uplink
+    with bytes queued: it raises :class:`LinkDownError` or degrades
+    through the fault plane."""
     if not uplink_bps or uplink_bps <= 0.0:
         return 0.0
     return nbytes * 8.0 / uplink_bps
@@ -199,10 +263,12 @@ def segments_for_cuts(
     cuts: Sequence[int],
     *,
     names: Sequence[str] | None = None,
+    uplinks: Sequence[float] | None = None,
 ) -> tuple[TierSegment, ...]:
     """Monotone 1-based cut points ``(c_1 .. c_{K-1})`` -> K segments.
     Tier j runs layers ``(c_j, c_{j+1}]``; branches sit strictly inside a
-    tier, never on the final tier of a K >= 2 plan."""
+    tier, never on the final tier of a K >= 2 plan.  ``uplinks[j]`` is
+    tier j's uplink (the last tier has none)."""
     total = sum(n for _, _, n in trunk_layout(cfg))
     bounds = (0, *(int(c) for c in cuts), total)
     if any(b > a for a, b in zip(bounds[1:], bounds[:-1])):
@@ -218,7 +284,8 @@ def segments_for_cuts(
                 b for b in cfg.branch_layers
                 if lo < b and (b <= hi if hi == total else b < hi)
             )
-        segs.append(TierSegment(names[j] if names else f"tier{j}", lo, hi, brs))
+        up = uplinks[j] if uplinks and j < len(uplinks) and j < k - 1 else None
+        segs.append(TierSegment(names[j] if names else f"tier{j}", lo, hi, brs, up))
     return tuple(segs)
 
 
@@ -240,7 +307,8 @@ class TierStepResult:
     device-to-host copy (except the device-resident feedback tensors, which
     are the step's own: see the module doc on output lifetime).  In
     compacted mode, ``branch_entropy`` and ``last_logits`` rows of
-    sequences that were never computed downstream are zero."""
+    sequences that were never computed downstream are zero; a degraded or
+    failed step runs no head tier, so its ``last_logits`` is None."""
 
     tokens: np.ndarray  # (B,) chosen token per sequence
     exited: np.ndarray  # (B,) bool — exited at some side branch
@@ -252,6 +320,7 @@ class TierStepResult:
     tokens_dev: torch.Tensor  # (B,) int32 on the device: next step's input
     last_logits: torch.Tensor  # (B, V) main-head logits on the device
     compaction: tuple[HopCompaction, ...] = ()
+    sim_transfer_s: tuple[float, ...] = ()  # simulated uplink time per hop
     live: int = 0  # sequences live at step entry
     active: np.ndarray | None = None  # the live mask the step ran with
     #: Sampled probe steps only: layer -> (B,) rows whose probed head was
@@ -259,6 +328,14 @@ class TierStepResult:
     #: for full probes and normal steps.
     branch_probe_mask: dict[int, np.ndarray] = dataclasses.field(
         default_factory=dict)
+    #: Fault plane (see the module doc): rows finalized from the fallback
+    #: head below a broken hop, rows that could not emit at all (both None
+    #: on a healthy step), the step's replayable trace, and the broken hop
+    #: (None = healthy).
+    degraded: np.ndarray | None = None
+    failed: np.ndarray | None = None
+    fault_events: tuple[FaultEvent, ...] = ()
+    degraded_hop: int | None = None
 
 
 def measured_exit_probs(res) -> dict[int, float]:
@@ -285,7 +362,7 @@ def measured_exit_probs(res) -> dict[int, float]:
 class SegmentFn:
     """One cached segment function, the counterpart of the reference's
     jitted ``(spec, bucket)`` callable.  ``key`` is ``((layer_lo, layer_hi,
-    branches, head, probe, probe_m), bucket)``; ``variants`` maps an
+    branches, head, probe, probe_m, degrade), bucket)``; ``variants`` maps an
     argument signature to its build (True for an eager variant, a
     :class:`_Graph` under graphs).  The executor calls it
     (:meth:`TierExecutor.call_segment`)."""
@@ -296,6 +373,7 @@ class SegmentFn:
     bucket: int | None
     probe: tuple[int, ...] = ()
     probe_m: int | None = None
+    degrade: int | None = None  # a degraded step's fallback head layer
     variants: dict = dataclasses.field(default_factory=dict)
 
 
@@ -365,7 +443,13 @@ class TierExecutor:
     CPU); the kernels anywhere but CUDA sm_90 raise.  ``graphs``: None =
     CUDA graphs on CUDA, eager on the CPU (:func:`resolve_graphs`).  The
     params are held once as their compute-dtype copies
-    (:func:`repro_torch.models.model.compute_params`)."""
+    (:func:`repro_torch.models.model.compute_params`).
+
+    ``simulate_network``: after the step's one fetch, sleep each hop's
+    transfer over its segment's uplink.  ``overlap``: "serial" pays the
+    transfers inline; "pipelined" runs them on per-hop host link clocks
+    overlapped with the next step.  ``fault_model`` / ``hop_policy`` arm
+    the fault plane (see the module doc)."""
 
     def __init__(
         self,
@@ -380,9 +464,15 @@ class TierExecutor:
         bucket_headroom: float = 0.0,
         device=None,
         graphs: bool | None = None,
+        simulate_network: bool = False,
+        overlap: str = "serial",
+        fault_model: LinkFaultModel | None = None,
+        hop_policy: HopPolicy | None = None,
     ):
         if compaction not in ("bucketed", "off"):
             raise ValueError(f"unknown compaction mode: {compaction!r}")
+        if overlap not in ("serial", "pipelined"):
+            raise ValueError(f"unknown overlap mode: {overlap!r}")
         if hint_window < 1:
             raise ValueError(f"hint_window must be >= 1: {hint_window}")
         if bucket_headroom < 0.0:
@@ -396,6 +486,8 @@ class TierExecutor:
         self.params = compute_params(_to_device(params, self.device),
                                      compute_dtype(cfg))
         self.compaction = compaction
+        self.simulate_network = simulate_network
+        self.overlap = overlap
         self.batched_heads = bool(batched_heads)
         self.hint_window = hint_window
         self.bucket_headroom = bucket_headroom
@@ -408,6 +500,29 @@ class TierExecutor:
         self.total_layers = sum(n for _, _, n in trunk_layout(cfg))
         self.host_syncs = 0
         self.overflow_retries = 0
+        #: Pipelined steps paid serially (an overflow re-run, a degraded or
+        #: failed step).
+        self.pipeline_fallbacks = 0
+        #: Pipelined link state: per-hop link-free host clocks, and when the
+        #: previous step's last transfer completes.
+        self._link_free: list[float] = []
+        self._inflight_done = 0.0
+        # The fault plane: a policy alone arms a benign model, so timeouts
+        # and breakers still apply to the real uplinks.
+        if fault_model is None and hop_policy is not None:
+            fault_model = LinkFaultModel()
+        self.fault_model = fault_model
+        self.hop_policy = (hop_policy if hop_policy is not None
+                           else HopPolicy() if fault_model is not None else None)
+        #: Per-hop circuit breakers by hop index (a tier boundary's position,
+        #: which outlives a repartition: a re-solve cannot reset an open
+        #: breaker).
+        self._breakers: dict[int, CircuitBreaker] = {}
+        #: The fault plane's step clock (seeded draws, flap windows).
+        self.fault_step = 0
+        self.degraded_steps = 0
+        self.failed_steps = 0
+        self.fault_retries = 0
         #: key -> builds (eager variants, or graph captures) of its decode
         #: segment; admission is not cached, so unlike the reference's this
         #: holds no prefill keys.
@@ -422,7 +537,9 @@ class TierExecutor:
     def install(self, segments: Sequence[TierSegment]) -> None:
         """Install a new tier plan, reusing the cached function of every
         segment whose key is unchanged; survivor hints restart at full
-        batch."""
+        batch.  Pipelined transfers in flight drain first, so no old-plan
+        hop overlaps the new plan."""
+        self.drain()
         segments = tuple(segments)
         if not segments or segments[0].layer_lo != 0:
             raise ValueError("first segment must start at layer 0")
@@ -439,17 +556,19 @@ class TierExecutor:
         self._hint_hist: dict[int, collections.deque] = {}
 
     def _segment_fn(self, seg: TierSegment, head: bool, bucket: int | None = None,
-                    probe: tuple[int, ...] = (), probe_m: int | None = None
-                    ) -> SegmentFn:
+                    probe: tuple[int, ...] = (), probe_m: int | None = None,
+                    degrade: int | None = None) -> SegmentFn:
         """Fetch (or make) the cached function of one tier segment:
         ``bucket=None`` runs the masked full batch, ``bucket=b`` the fused
         compact(b) -> run -> scatter step; ``probe`` adds report-only heads,
-        sampled on ``probe_m`` rows when set."""
-        key = ((*seg.spec(head), probe, probe_m), bucket)
+        sampled on ``probe_m`` rows when set; ``degrade`` makes it a
+        degraded step's terminal segment, finalizing every row not yet
+        exited from the head at that layer."""
+        key = ((*seg.spec(head), probe, probe_m, degrade), bucket)
         fn = self._fn_cache.get(key)
         if fn is None:
             fn = self._fn_cache[key] = SegmentFn(key, seg, head, bucket, probe,
-                                                 probe_m)
+                                                 probe_m, degrade)
         return fn
 
     # ---------------------------------------------------- host <-> device
@@ -489,12 +608,14 @@ class TierExecutor:
                      probe_rows=None) -> dict[str, Any]:
         """One tier, eagerly: masked full batch (``bucket=None``) or the
         fused compact(bucket) -> run -> scatter step, plus the report-only
-        probe heads."""
+        probe heads and a degraded step's fallback head."""
         cfg, params = self.cfg, self.params
         seg, head, bucket = fn.seg, fn.head, fn.bucket
-        probe, probe_m = fn.probe, fn.probe_m
+        probe, probe_m, degrade = fn.probe, fn.probe_m, fn.degrade
         plan_set = frozenset(seg.branches)
-        eval_layers = tuple(sorted({*seg.branches, *probe}))
+        # The fallback head joins the plan's stack (and decision).
+        stack_set = plan_set | ({degrade} if degrade is not None else set())
+        eval_layers = tuple(sorted({*stack_set, *probe}))
         batch = x.shape[0]
         positions = pos_t.reshape(1) if pos_t.dim() == 0 else pos_t[:, None]
         if bucket is None:
@@ -528,7 +649,7 @@ class TierExecutor:
                         for l in probe}
         if self.batched_heads:
             dec, pdec = {}, {}
-            for got, layers, into in ((collected, plan_set, dec),
+            for got, layers, into in ((collected, stack_set, dec),
                                       (probe_hidden, probe, pdec)):
                 ls, lg = branch_logits_stacked(params, got, cfg, tuple(sorted(layers)))
                 if lg is not None:
@@ -537,7 +658,7 @@ class TierExecutor:
             dec, pdec = [
                 {l: self._exit_decision(lg[:, 0])
                  for l, lg in branch_logits_per_head(params, got, cfg).items()}
-                for got in ({l: collected[l] for l in plan_set}, probe_hidden)]
+                for got in ({l: collected[l] for l in stack_set}, probe_hidden)]
         takes, ents, ptakes, pents = [], [], [], []
         for layer in eval_layers:
             if layer in plan_set:
@@ -547,10 +668,17 @@ class TierExecutor:
                 ex = ex | take
                 takes.append(take)
                 ents.append(e)
-            else:  # probe: report-only, never alters the trajectory
+            if layer in probe:  # report-only, never alters the trajectory
                 e, flag, _ = pdec[layer]
                 ptakes.append(flag & ~(ex if pr_idx is None else ex[pr_idx]))
                 pents.append(e)
+        if degrade is not None:
+            # The link below is broken: every row not yet exited is
+            # finalized from the fallback head's argmax (threshold ignored),
+            # and the cache clock the absent head tier would bump moves here.
+            ch = torch.where(ex, ch, dec[degrade][2])
+            ex = torch.ones_like(ex)
+            caches["length"] += 1
         dev = self.device
         psub = sub if probe_m is None else probe_m
 
@@ -585,7 +713,7 @@ class TierExecutor:
             out["take"], out["ents"] = take_s, ents_s
             if head:
                 out["logits"] = logits
-            else:
+            elif degrade is None:
                 out["hidden"] = h
             return out
         # Scatter back to batch order, on the device.
@@ -597,7 +725,7 @@ class TierExecutor:
             out["logits"] = torch.zeros(
                 (batch, logits.shape[-1]), dtype=logits.dtype, device=dev
             ).index_copy_(0, rows, logits)
-        else:
+        elif degrade is None:
             out["hidden"] = torch.zeros(
                 (batch, 1, h.shape[-1]), dtype=h.dtype, device=dev
             ).index_copy_(0, rows, h)
@@ -713,7 +841,7 @@ class TierExecutor:
         for t, v in lengths:
             t.copy_(v)
 
-    # -------------------------------------------------------------- step
+    # ---------------------------------------------- buckets and probes
     def _plan_buckets(self, batch: int) -> dict[int, int]:
         """Host-side bucket per downstream segment: the windowed-max hint
         (full batch where none exists yet), inflated by the headroom and
@@ -769,12 +897,132 @@ class TierExecutor:
         self._probe_offset = (self._probe_offset + m) % len(pool)
         return sel, m
 
+    # ------------------------------------------------------- fault plane
+    def _plan_hops(self, batch: int
+                   ) -> tuple[int | None, dict[int, HopOutcome], tuple[FaultEvent, ...]]:
+        """Phase A of the fault plane: check every hop the plan crosses, in
+        order, before any segment dispatches (host only, no sync).
+
+        Per hop: the circuit breaker's gate (open and cooling: skip the hop,
+        a fast degrade that is not a link observation; open and cooled: one
+        half-open attempt), then the policy's attempts against this step's
+        draw, the deadline judged on the full-batch payload so the decision
+        never depends on the live trajectory.  The first hop that fails
+        breaks the chain.  Returns (broken hop or None, the attempted hops'
+        outcomes, the step's event trace)."""
+        pol, model, step = self.hop_policy, self.fault_model, self.fault_step
+        events: list[FaultEvent] = []
+        outcomes: dict[int, HopOutcome] = {}
+        for j in range(self._head_idx):
+            br = self._breakers.setdefault(j, CircuitBreaker(pol))
+            gate = br.gate(step)
+            if gate == "skip":
+                events.append(FaultEvent(step, j, "breaker_skip"))
+                return j, outcomes, tuple(events)
+            if gate == "probe":
+                events.append(FaultEvent(step, j, "breaker_half_open"))
+            attempts = 1 if gate == "probe" else 1 + pol.max_retries
+            cond, jitter_u, drops = model.draw(step, j, attempts)
+            out = attempt_hop(
+                pol, cond, drops, jitter_u, step=step, hop=j,
+                est_bytes=batch * bytes_per_sequence(self.cfg,
+                                                     self.segments[j].layer_hi),
+                uplink_bps=self.segments[j].uplink_bps or 0.0, attempts=attempts)
+            events.extend(out.events)
+            outcomes[j] = out
+            self.fault_retries += sum(e.kind == "retry" for e in out.events)
+            was = br.state
+            br.record(step, out.ok)
+            if br.state != was:
+                events.append(FaultEvent(step, j, f"breaker_{br.state}"))
+            if not out.ok:
+                return j, outcomes, tuple(events)
+        return None, outcomes, tuple(events)
+
+    def _fallback(self, broken: int) -> tuple[int, int] | None:
+        """(segment index, layer) of the deepest exit head at or below the
+        broken hop's cut — a branch at the cut, which the healthy plan
+        discards, included — or None when there is none."""
+        cut = self.segments[broken].layer_hi
+        layer = max((b for b in self.cfg.branch_layers if b <= cut), default=0)
+        if layer < 1:
+            return None
+        return next(i for i, s in enumerate(self.segments)
+                    if not s.is_empty and s.layer_lo < layer <= s.layer_hi), layer
+
+    # ------------------------------------------------------- link clocks
+    def drain(self) -> None:
+        """Wait until every pipelined simulated transfer in flight has
+        completed, then reset the link clocks (a no-op in serial mode)."""
+        wait = max([self._inflight_done, *self._link_free], default=0.0) \
+            - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        self._link_free = []
+        self._inflight_done = 0.0
+
+    def _pipeline_transfers(self, sim: tuple[float, ...]) -> None:
+        """Schedule this step's hop transfers on the per-hop link clocks and
+        return once the *previous* step's transfers have drained, so the
+        steady step period is the pipeline's slowest stage."""
+        now = time.perf_counter()
+        self._link_free += [0.0] * (len(sim) - len(self._link_free))
+        arrive = now  # the payload leaves the entry tier at the fetch
+        for j, t in enumerate(sim):
+            # Hop j takes the payload once it has cleared hop j-1 and the
+            # link has finished the previous token's transfer.
+            self._link_free[j] = max(arrive, self._link_free[j]) + t
+            arrive = self._link_free[j]
+        prev_done, self._inflight_done = self._inflight_done, arrive
+        wait = prev_done - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+
+    def _transfers(self, nbytes, outcomes: dict[int, HopOutcome]
+                   ) -> tuple[float, ...]:
+        """Each hop's simulated seconds: its bytes over its uplink, or under
+        the fault plane the (multiplier-scaled, spike-added) transfer of a
+        hop that held plus the overhead its failed attempts burned."""
+        sim = []
+        for j, nb in enumerate(nbytes):
+            up = self.segments[j].uplink_bps
+            o = outcomes.get(j)
+            if o is None:
+                if nb > 0 and (not up or up <= 0.0):
+                    raise LinkDownError(
+                        f"hop {j} ({self.segments[j].name}) must ship {nb:.0f} "
+                        "bytes but uplink_bps is unset/zero; attach a "
+                        "LinkFaultModel to degrade instead")
+                sim.append(transfer_seconds(nb, up))
+            else:
+                t = (o.latency_s + nb * 8.0 / (up * o.bandwidth_mult)
+                     if o.ok and nb > 0 else 0.0)
+                sim.append(o.overhead_s + t)
+        return tuple(sim)
+
+    def _pay(self, sim: tuple[float, ...], pipelined: bool) -> None:
+        """Charge the step's simulated transfers to the wall clock: on the
+        link clocks, or inline (a pipelined executor drains first and
+        counts the fallback)."""
+        if pipelined:
+            self._pipeline_transfers(sim)
+            return
+        if self.overlap == "pipelined":
+            self.pipeline_fallbacks += 1
+            self.drain()
+        if sum(sim) > 0:
+            time.sleep(sum(sim))
+
+    # -------------------------------------------------------------- step
     def dispatch(self, tok, pos_t, caches, buckets: dict[int, int],
                  exited0: torch.Tensor | None = None, probe_map=None,
-                 probe_rows: torch.Tensor | None = None, probe_m: int | None = None):
+                 probe_rows: torch.Tensor | None = None, probe_m: int | None = None,
+                 degrade: tuple[int, int] | None = None):
         """Enqueue every tier segment of one step; no host sync.  Returns
         (tensors to fetch, chosen tokens, main-head logits); under graphs
-        they are graph outputs, valid until the segments replay again."""
+        they are graph outputs, valid until the segments replay again.
+        ``degrade=(segment index, layer)`` ends the step at that segment,
+        which finalizes every row from the head at that layer."""
         probe_map = probe_map or {}
         batch = tok.shape[0]
         exited = (torch.zeros((batch,), dtype=torch.bool, device=self.device)
@@ -784,15 +1032,17 @@ class TierExecutor:
         x = tok
         fetch: dict[str, torch.Tensor] = {}
         logits = None
-        for i, seg in enumerate(self.segments):
+        last = len(self.segments) if degrade is None else degrade[0] + 1
+        for i, seg in enumerate(self.segments[:last]):
             if seg.is_empty:
                 continue
             head = i == self._head_idx
             b = buckets.get(i)
             pr = probe_map.get(i, ())
             sampled = bool(pr) and probe_m is not None
+            deg = degrade[1] if degrade is not None and i == degrade[0] else None
             fn = self._segment_fn(seg, head, None if b is None else min(b, batch),
-                                  pr, probe_m if sampled else None)
+                                  pr, probe_m if sampled else None, deg)
             out = self.call_segment(fn, x, pos_t, exited, chosen, caches, layout,
                                     probe_rows if sampled else None)
             exited, chosen = out["exited"], out["chosen"]
@@ -806,47 +1056,97 @@ class TierExecutor:
                     fetch[f"pcover{i}"] = out["pcover"]
             if head:
                 logits = out["logits"]
-            else:
+            elif deg is None:
                 x = out["hidden"]
         fetch["tokens"] = chosen
         fetch["exited"] = exited
         return fetch, chosen, logits
 
     def _run_once(self, tok, pos_t, caches, buckets, exited0, active_np,
-                  probe_map, probe_rows, probe_m):
-        """Dispatch all segments and make the single fetch; returns (host
-        dict, entering-survivor counts, chosen, logits, alive counts)."""
+                  probe_map, probe_rows, probe_m, degrade):
+        """Dispatch the segments and make the single fetch; returns (host
+        dict, entering-survivor counts, chosen, logits, alive counts, the
+        rows exited before the step or at a plan branch).  Segments past
+        a degraded step's end have no masks: their counts carry the last
+        executed segment's."""
         batch = tok.shape[0]
         fetch, chosen, logits = self.dispatch(tok, pos_t, caches, buckets,
                                               exited0, probe_map, probe_rows,
-                                              probe_m)
+                                              probe_m, degrade)
         host = self._fetch(fetch)
         exited_run = (np.zeros((batch,), bool) if active_np is None
                       else ~active_np)
         alive_after_seg = {}
         for i, seg in enumerate(self.segments):
-            for row, _layer in enumerate(seg.branches):
-                exited_run |= host[f"take{i}"][row]
+            if f"take{i}" in host:
+                for row in range(len(seg.branches)):
+                    exited_run |= host[f"take{i}"][row]
             alive_after_seg[i] = int(batch - exited_run.sum())
+        last = len(self.segments) if degrade is None else degrade[0] + 1
         entering = {
             i: alive_after_seg[i - 1]
-            for i in range(1, len(self.segments))
+            for i in range(1, last)
             if not self.segments[i].is_empty
         }
-        return host, entering, chosen, logits, alive_after_seg
+        return host, entering, chosen, logits, alive_after_seg, exited_run
+
+    def _failed_step(self, batch: int, active_np, live: int, outcomes,
+                     events, broken: int) -> TierStepResult:
+        """A broken hop with no exit head at or below it: nothing runs and
+        nothing is fetched; every live row fails.  Under
+        ``simulate_network`` only the overhead of the failed attempts is
+        charged (no payload left the entry tier)."""
+        self.failed_steps += 1
+        sim = ()
+        if self.simulate_network:
+            sim = tuple(outcomes[j].overhead_s if j in outcomes else 0.0
+                        for j in range(self._head_idx))
+            self._pay(sim, pipelined=False)
+        hops = self._head_idx
+        return TierStepResult(
+            tokens=np.zeros((batch,), np.int32),
+            exited=(np.zeros((batch,), bool) if active_np is None else ~active_np),
+            exit_tier=np.full((batch,), -1, np.int32),
+            branch_take={},
+            branch_entropy={},
+            shipped_per_hop=(0,) * hops,
+            bytes_per_hop=(0.0,) * hops,
+            tokens_dev=torch.zeros((batch,), dtype=torch.int32, device=self.device),
+            last_logits=None,
+            compaction=tuple(HopCompaction(0, 0) for _ in range(hops)),
+            sim_transfer_s=sim,
+            live=live,
+            active=active_np,
+            degraded=np.zeros((batch,), bool),
+            failed=(np.ones((batch,), bool) if active_np is None
+                    else active_np.copy()),
+            fault_events=events,
+            degraded_hop=broken,
+        )
 
     def step(self, tok, pos, caches: dict, *, active=None
              ) -> tuple[TierStepResult, dict]:
         """One decode step across all tiers: one host sync (plus one per
-        rare overflow re-run).  ``tok`` (B, 1) tokens (on the device, or
-        host values); ``pos`` the shared step position or a per-sequence
-        (B,) vector; ``active`` (B,) marks live slots (dead slots enter
-        pre-exited)."""
+        rare overflow re-run; none on a failed step).  ``tok`` (B, 1)
+        tokens (on the device, or host values); ``pos`` the shared step
+        position or a per-sequence (B,) vector; ``active`` (B,) marks live
+        slots (dead slots enter pre-exited)."""
         cfg = self.cfg
-        tok = self._upload(tok, torch.int32)
         batch = tok.shape[0]
         active_np = None if active is None else np.array(active, dtype=bool)
         live = batch if active_np is None else int(active_np.sum())
+        # The fault plane's phase A, before anything reaches the device.
+        broken, outcomes, events, degrade = None, {}, (), None
+        if self.fault_model is not None:
+            broken, outcomes, events = self._plan_hops(batch)
+            self.fault_step += 1
+            if broken is not None:
+                self.degraded_steps += 1
+                degrade = self._fallback(broken)
+                if degrade is None:
+                    return self._failed_step(batch, active_np, live, outcomes,
+                                             events, broken), caches
+        tok = self._upload(tok, torch.int32)
         pos_t = self._upload(pos, torch.int32)
         exited0 = None if active_np is None else self._upload(~active_np, torch.bool)
         probe_map = self._probe_layers() if self.probe_next else {}
@@ -860,8 +1160,9 @@ class TierExecutor:
         snap = (self._snapshot(caches, pos_t)
                 if any(b < batch for b in buckets.values()) else None)
         run = (tok, pos_t, caches)
-        extra = (exited0, active_np, probe_map, probe_rows, probe_m)
-        host, entering, chosen, logits, alive = self._run_once(*run, buckets, *extra)
+        extra = (exited0, active_np, probe_map, probe_rows, probe_m, degrade)
+        host, entering, chosen, logits, alive, exited_plan = self._run_once(
+            *run, buckets, *extra)
         used = {i: min(buckets.get(i, batch), batch) for i in entering}
         # Overflow: true survivors exceeded a planned bucket, so excluded
         # survivors carry garbage.  Restore the entry state and re-run with
@@ -880,8 +1181,8 @@ class TierExecutor:
                     for i in entering
                 }
             self._restore(snap, caches)
-            host, entering, chosen, logits, alive = self._run_once(*run, buckets,
-                                                                   *extra)
+            host, entering, chosen, logits, alive, exited_plan = self._run_once(
+                *run, buckets, *extra)
             used = {i: min(buckets.get(i, batch), batch) for i in entering}
         self._observe_hints(entering)
         if self.graphs:
@@ -891,31 +1192,57 @@ class TierExecutor:
             logits = None if logits is None else logits.clone()
 
         # Probe branches report would-exit masks and entropies only; they
-        # never touch exit_tier.
+        # never touch exit_tier.  A degraded step has no masks past its end.
         exit_tier = np.full((batch,), -1, np.int32)
         branch_take: dict[int, np.ndarray] = {}
         branch_entropy: dict[int, np.ndarray] = {}
         branch_probe_mask: dict[int, np.ndarray] = {}
         for i, seg in enumerate(self.segments):
-            for row, layer in enumerate(seg.branches):
-                mask = host[f"take{i}"][row]
-                branch_take[layer] = mask
-                branch_entropy[layer] = host[f"ents{i}"][row]
-                exit_tier[mask] = i
-            for row, layer in enumerate(probe_map.get(i, ())):
-                branch_take[layer] = host[f"ptake{i}"][row]
-                branch_entropy[layer] = host[f"pents{i}"][row]
-                if probe_m is not None:
-                    branch_probe_mask[layer] = host[f"pcover{i}"]
+            if f"take{i}" in host:
+                for row, layer in enumerate(seg.branches):
+                    mask = host[f"take{i}"][row]
+                    branch_take[layer] = mask
+                    branch_entropy[layer] = host[f"ents{i}"][row]
+                    exit_tier[mask] = i
+            if f"ptake{i}" in host:
+                for row, layer in enumerate(probe_map.get(i, ())):
+                    branch_take[layer] = host[f"ptake{i}"][row]
+                    branch_entropy[layer] = host[f"pents{i}"][row]
+                    if probe_m is not None:
+                        branch_probe_mask[layer] = host[f"pcover{i}"]
 
+        # Degraded rows: exited in the fetch but at no plan branch — the
+        # fallback head finalized them.  Their exit tier is the fallback
+        # tier; they stay out of branch_take, so exit-probability
+        # estimates see only threshold exits.
+        degraded = failed = None
+        if broken is not None:
+            degraded = host["exited"] & ~exited_plan
+            exit_tier[degraded] = degrade[0]
+            failed = np.zeros((batch,), bool)
+
+        # One hop per cut with layers (or the head) downstream; a degraded
+        # step ships nothing from its fallback segment on.
+        stop_hop = self._head_idx if degrade is None else degrade[0]
         shipped, nbytes, compaction = [], [], []
         for j in range(self._head_idx):
+            if j >= stop_hop:
+                shipped.append(0)
+                nbytes.append(0.0)
+                compaction.append(HopCompaction(0, 0))
+                continue
             alive_j = alive[j]
             shipped.append(alive_j)
             nbytes.append(alive_j * bytes_per_sequence(cfg, self.segments[j].layer_hi))
             nxt = next(i for i in range(j + 1, len(self.segments))
                        if not self.segments[i].is_empty)
             compaction.append(HopCompaction(alive_j, used.get(nxt, batch)))
+
+        sim = ()
+        if self.simulate_network:
+            sim = self._transfers(nbytes, outcomes)
+            self._pay(sim, self.overlap == "pipelined" and attempts == 0
+                      and broken is None)
 
         result = TierStepResult(
             tokens=host["tokens"],
@@ -928,9 +1255,14 @@ class TierExecutor:
             tokens_dev=chosen,
             last_logits=logits,
             compaction=tuple(compaction),
+            sim_transfer_s=sim,
             live=live,
             active=active_np,
             branch_probe_mask=branch_probe_mask,
+            degraded=degraded,
+            failed=failed,
+            fault_events=events,
+            degraded_hop=broken,
         )
         return result, caches
 

@@ -14,11 +14,10 @@ example modules at smoke size.
     sampled-probe accounting — counts and estimates equal to the
     reference's.
 
-Not ported here: ``test_tiers.py``'s pipelined-overlap solve (waits for
-pipelined overlap) and the fault cases (wait for the fault plane).  The
-reference's ``update_network`` test also reads ``PartitionedServer.network``
-and the segments' uplinks, which come with link simulation; the port's is
-held to the reference's cut.
+``test_tiers.py``'s pipelined-overlap solve and the uplinks that
+``update_network`` installs are held in ``test_torch_link.py``, the fault
+cases in ``test_torch_faults.py``; the ``update_network`` case here is held
+to the reference's cut.
 
 Fixture: the ``phi3_mini_3_8b`` smoke config with ``num_layers=4,
 branch_layers=(1, 3)`` in fp32 compute, the threshold at the midpoint of

@@ -28,7 +28,9 @@ for name in ("repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b
              "repro_torch.core.shortest_path", "repro_torch.core.profiler",
              "repro_torch.serving.engine", "repro_torch.serving.multitier",
              "repro_torch.serving.controller", "repro_torch.examples.quickstart",
-             "repro_torch.examples.partition_sweep"):
+             "repro_torch.examples.partition_sweep", "repro_torch.serving.faults",
+             "repro_torch.configs.qwen3_8b",
+             "repro_torch.examples.serve_partitioned"):
     assert name in names, name
 """
 
@@ -39,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 39
+    assert n_modules >= 47
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

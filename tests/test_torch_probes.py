@@ -22,7 +22,7 @@ counterpart here: the port's kernels run only on the card, where
 normal steps.  Only the reference's decode-segment keys are compared: its
 ``trace_counts`` also counts prefill traces, which the port does not
 cache (admission runs eagerly).  The reference's key also carries the
-shard width and the degraded-step head, which wait for their slices.
+shard width, which waits for its slice.
 
 Fixture: the ``phi3_mini_3_8b`` smoke config with ``num_layers=4,
 branch_layers=(1, 3)`` in fp32 compute, the threshold at the midpoint of
@@ -108,14 +108,14 @@ def _pair(weights, mixed, cuts, branches=(1, 3), **kw):
 
 def decode_keys(counts: dict) -> dict:
     """The reference's decode-segment trace counts under the port's key
-    ``((lo, hi, branches, head, probe, probe_m), bucket)``."""
+    ``((lo, hi, branches, head, probe, probe_m, degrade), bucket)``."""
     out = {}
     for key, n in counts.items():
         if not isinstance(key[0], tuple):
             continue  # ("prefill", plen, n)
         (lo, hi, branches, head, devices, probe, probe_m, degrade), bucket = key
-        assert devices == 1 and degrade is None
-        out[((lo, hi, branches, head, probe, probe_m), bucket)] = n
+        assert devices == 1
+        out[((lo, hi, branches, head, probe, probe_m, degrade), bucket)] = n
     return out
 
 
