@@ -12,7 +12,9 @@ numpy on the JAX side, so this module imports no JAX: callers hand it
   * :func:`caches_to_numpy` returns bf16 tensors as float32 numpy arrays,
     so a cache compares against the reference's ``cache.astype(float32)``;
   * :func:`alexnet_params_from_jax` also changes B-AlexNet's layout
-    (NHWC / HWIO in the reference, NCHW / OIHW in the port).
+    (NHWC / HWIO in the reference, NCHW / OIHW in the port);
+  * :func:`train_state_from_jax` carries a reference train state (params,
+    the optimizer's state, the step) so that the port takes its next step.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from repro_torch.kernels.ops import resolve_device
 
 __all__ = ["params_from_jax", "caches_from_jax", "caches_to_numpy",
-           "alexnet_params_from_jax"]
+           "alexnet_params_from_jax", "train_state_from_jax"]
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -54,6 +56,17 @@ def caches_from_jax(tree, device=None) -> dict:
     ``device`` (default: the current CUDA device)."""
     device = resolve_device(device)
     return _map(tree, lambda a: _to_torch(a, device))
+
+
+def train_state_from_jax(state, device=None) -> dict:
+    """A reference train state (``init_train_state``'s tree with numpy
+    leaves: ``params``, ``opt`` — AdamW's ``m`` / ``v`` or Adafactor's
+    ``vr`` / ``vc`` / ``v`` — and the int32 ``step``) as the port's tensors
+    on ``device`` (default: the current CUDA device)."""
+    if set(state) != {"params", "opt", "step"}:
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    device = resolve_device(device)
+    return _map(state, lambda a: _to_torch(a, device))
 
 
 def caches_to_numpy(tree) -> dict:

@@ -136,13 +136,14 @@ class ModelConfig:
 
 
 ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b",
-                             "qwen3_8b")
+                             "qwen3_8b", "olmo_1b")
 
 _ALIAS = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "mamba2-130m": "mamba2_130m",
     "zamba2-1.2b": "zamba2_1_2b",
     "qwen3-8b": "qwen3_8b",
+    "olmo-1b": "olmo_1b",
 }
 
 

@@ -36,6 +36,7 @@ from repro_torch.kernels.ref import flash_decode_ref
 from repro_torch.models.layers import apply_rope, dense, rmsnorm
 
 __all__ = [
+    "FlashAttention",
     "attn_apply",
     "init_kv_cache",
     "prefill_attention",
@@ -203,6 +204,39 @@ def _cache_prefill_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 # ================================================== prefill attention (plain)
+def _masked_scores(qf: torch.Tensor, kf: torch.Tensor, q_pos: torch.Tensor,
+                   k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """fp32 scores (B, Sq, K, G, Sk) of scaled queries against keys, -1e30
+    where the causal (optionally banded) mask or an empty slot excludes the
+    key."""
+    sc = torch.einsum("bqkgd,bskd->bqkgs", qf, kf)
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    mask = mask & (k_pos[None, :] >= 0)
+    return torch.where(mask[None, :, None, None, :], sc, NEG_INF)
+
+
+def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, window: int):
+    """(out, m, l): the output and each row's softmax max and sum."""
+    s, d = q.shape[1], q.shape[-1]
+    qf = (q * (1.0 / math.sqrt(d))).float()
+    kf, vf = k.float(), v.float()
+    outs, ms, ls = [], [], []
+    for q0 in range(0, s, _BLOCK_Q):
+        sc = _masked_scores(qf[:, q0:q0 + _BLOCK_Q], kf,
+                            positions[q0:q0 + _BLOCK_Q], positions, window)
+        m = sc.amax(dim=-1).clamp(min=NEG_INF)
+        p = torch.exp(sc - m[..., None])
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bqkgs,bskd->bqkgd", p, vf)
+        outs.append(acc / l.clamp(min=1e-30)[..., None])
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=1).to(q.dtype), torch.cat(ms, dim=1), torch.cat(ls, dim=1)
+
+
 def prefill_attention(
     q: torch.Tensor,  # (B, S, K, G, D)
     k: torch.Tensor,  # (B, S, K, D)
@@ -216,25 +250,51 @@ def prefill_attention(
     out = p v / max(sum p, 1e-30)).  Not a kernel in either package: the
     reference runs plain jnp here.  Queries are taken ``_BLOCK_Q`` at a
     time to bound the (S, S) score memory."""
-    b, s, kh, g, d = q.shape
-    scale = 1.0 / math.sqrt(d)
-    qf = (q * scale).float()
-    kf, vf = k.float(), v.float()
-    outs = []
-    for q0 in range(0, s, _BLOCK_Q):
-        qp = positions[q0:q0 + _BLOCK_Q]
-        sc = torch.einsum("bqkgd,bskd->bqkgs", qf[:, q0:q0 + _BLOCK_Q], kf)
-        mask = qp[:, None] >= positions[None, :]
-        if window > 0:
-            mask = mask & (qp[:, None] - positions[None, :] < window)
-        mask = mask & (positions[None, :] >= 0)
-        sc = torch.where(mask[None, :, None, None, :], sc, NEG_INF)
-        m = sc.amax(dim=-1).clamp(min=NEG_INF)
-        p = torch.exp(sc - m[..., None])
-        l = p.sum(dim=-1)
-        acc = torch.einsum("bqkgs,bskd->bqkgd", p, vf)
-        outs.append(acc / l.clamp(min=1e-30)[..., None])
-    return torch.cat(outs, dim=1).to(q.dtype)
+    return _attention_fwd(q, k, v, positions, window)[0]
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`prefill_attention` with the reference's recompute backward
+    (``_flash_vjp``): the forward keeps only (q, k, v, out, m, l), and the
+    backward recomputes each query block's probabilities p from them, with
+    ``delta = sum(dout * out)``, ``ds = p (dp - delta)`` and the scale
+    folded into dq at the end.  Nothing of size (Sq, Sk) is saved, where
+    plain autograd would keep every block's fp32 scores.  Plain PyTorch,
+    as the reference's is plain jnp: neither package trains on a kernel.
+
+    ``FlashAttention.apply(q, k, v, positions, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, window):
+        out, m, l = _attention_fwd(q, k, v, positions, window)
+        ctx.save_for_backward(q, k, v, positions, out, m, l)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, positions, out, m, l = ctx.saved_tensors
+        s, d = q.shape[1], q.shape[-1]
+        scale = 1.0 / math.sqrt(d)
+        qf = (q * scale).float()
+        kf, vf = k.float(), v.float()
+        do = dout.float()
+        lsafe = l.clamp(min=1e-30)
+        delta = (do * out.float()).sum(dim=-1)  # (B, Sq, K, G)
+        dq = torch.empty(qf.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(kf.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(vf.shape, dtype=torch.float32, device=v.device)
+        for q0 in range(0, s, _BLOCK_Q):
+            blk = slice(q0, q0 + _BLOCK_Q)
+            sc = _masked_scores(qf[:, blk], kf, positions[blk], positions, ctx.window)
+            p = torch.exp(sc - m[:, blk, ..., None]) / lsafe[:, blk, ..., None]
+            dv += torch.einsum("bqkgs,bqkgd->bskd", p, do[:, blk])
+            dp = torch.einsum("bqkgd,bskd->bqkgs", do[:, blk], vf)
+            ds = p * (dp - delta[:, blk, ..., None])
+            dq[:, blk] = torch.einsum("bqkgs,bskd->bqkgd", ds, kf)
+            dk += torch.einsum("bqkgs,bqkgd->bskd", ds, qf[:, blk])
+        return ((dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None)
 
 
 # ============================================================== standard GQA
@@ -249,7 +309,9 @@ def attn_apply(
     rows=None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
-    """One attention op.  ``cache=None``: full causal attention over x.
+    """One attention op.  ``cache=None``: full causal attention over x
+    (training, or a prefill that writes no cache), through
+    :class:`FlashAttention`'s recompute backward.
     Cache given with S > 1: prompt prefill writing the cache (``rows``
     targets admitted rows of the resident cache, a host-side plan).  Cache
     given with S == 1: decode — write this step, then attend over the
@@ -287,6 +349,6 @@ def attn_apply(
         out = decode(qg.reshape(b, kh * g, hd), cache["k"], cache["v"],
                      cache["pos"], q_pos, rows, window=window)
     else:
-        out = prefill_attention(qg, k, v, positions, window=window)
+        out = FlashAttention.apply(qg, k, v, positions, window)
     out = out.reshape(b, s, kh * g * hd)
     return dense(params["wo"], out, dtype), cache

@@ -16,7 +16,9 @@ __all__ = [
     "truncated_normal_",
     "dense",
     "rmsnorm",
+    "nonparametric_ln",
     "norm_apply",
+    "norm_init",
     "rope_frequencies",
     "apply_rope",
     "silu",
@@ -47,9 +49,30 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def nonparametric_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: no scale, no bias; the population
+    variance (``jnp.var``), hence ``correction=0``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def norm_init(norm_type: str, d: int, device, lead: tuple[int, ...] = ()) -> dict:
+    """A norm's params, with leading axes ``lead`` (a stack): a unit scale
+    for RMSNorm, nothing for the non-parametric LayerNorm."""
+    if norm_type == "rmsnorm":
+        return {"scale": torch.ones((*lead, d), device=device)}
+    if norm_type == "nonparametric_ln":
+        return {}
+    raise NotImplementedError(f"the port has no {norm_type!r} norm yet")
+
+
 def norm_apply(norm_type: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     if norm_type == "rmsnorm":
         return rmsnorm(params, x)
+    if norm_type == "nonparametric_ln":
+        return nonparametric_ln(x)
     raise NotImplementedError(f"the port has no {norm_type!r} norm yet")
 
 

@@ -16,6 +16,13 @@ Params (the reference's pytree layout, as tensors):
      "final_norm": {"scale": (D,)}, "lm_head": (D, V) (absent when the
      embedding is tied), "branches": {"scale": (n_branches, D)},
      "shared_attn": one GQA block (hybrid)}
+Under the non-parametric LayerNorm (OLMo) every norm's params, the
+branches' included, are ``{}``.
+
+Training (:func:`forward_train`) is the reference's joint BranchyNet loss:
+the main head's cross-entropy plus ``branch_loss_weight`` times each
+branch's, each head's loss recomputed in the backward pass
+(``torch.utils.checkpoint``) so that no logits are saved.
 Caches (full-batch resident, updated in place):
     {"length": () int32,
      "blocks": {"self": {"k", "v": (L, B, C, Kh, D), "pos": (L, B, C) int32,
@@ -34,14 +41,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.calibration import normalized_entropy
 from repro_torch.kernels.ops import resolve_device, resolve_use_kernels
-from repro_torch.models.layers import dense, embed, norm_apply
+from repro_torch.models.layers import dense, embed, norm_apply, norm_init
 from repro_torch.models.transformer import (
     BlockKind,
     block_apply,
     init_block_cache,
     layer_slice,
+    recomputed,
     run_stack,
     stack_init,
+    unstack,
 )
 
 __all__ = [
@@ -51,11 +60,13 @@ __all__ = [
     "compute_params",
     "decode_step",
     "embed_decode",
+    "forward_train",
     "hybrid_sites",
     "init_caches",
     "init_params",
     "prefill",
     "run_trunk",
+    "softmax_xent",
     "trunk_layout",
 ]
 
@@ -122,12 +133,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = keep(layer_slice(
             stack_init(cfg, _SHARED_ATTN_KIND, 1, generator, device), 0))
-    params["final_norm"] = keep({"scale": torch.ones(d, device=device)})
+    params["final_norm"] = keep(norm_init(cfg.norm_type, d, device))
     if not cfg.tie_embeddings:
         params["lm_head"] = keep(normal(d, v, std=0.02))
     if cfg.branch_layers:
-        params["branches"] = keep({
-            "scale": torch.ones(len(cfg.branch_layers), d, device=device)})
+        params["branches"] = keep(norm_init(cfg.norm_type, d, device,
+                                            (len(cfg.branch_layers),)))
     return params
 
 
@@ -187,6 +198,7 @@ def run_trunk(
     collect: tuple[int, ...] = (),  # 1-based "after layer i" points
     rows=None,
     use_kernels: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, dict | None, dict[int, torch.Tensor]]:
     """Run trunk layers [lo, hi), segmenting at the ``collect`` layers and
     (hybrid) the shared-attention sites.  Returns (h, caches, {layer:
@@ -194,18 +206,21 @@ def run_trunk(
     layer it follows, so a cut after site s keeps s on the lower tier.
     ``rows``: h is a sub-batch whose stateful reads and writes go to those
     rows of the full-batch caches (decode: a device tensor with
-    out-of-bounds sentinels; prefill: a host-side plan)."""
+    out-of-bounds sentinels; prefill: a host-side plan).  ``remat``: each
+    trunk layer is recomputed in the backward pass (the shared block is
+    not, as in the reference)."""
     (name, kind, n), = trunk_layout(cfg)
     lo, hi = layer_range or (0, n)
     sites = hybrid_sites(cfg)
     stops = sorted({hi, *(c for c in (*collect, *sites) if lo < c < hi)})
     collected: dict[int, torch.Tensor] = {}
+    layers = unstack(params[name], lo, hi)
     start = lo
     for stop in stops:
         h = run_stack(
-            params[name], h, cfg, kind, positions,
+            layers, h, cfg, kind, positions,
             caches[name] if caches is not None else None,
-            lo=start, hi=stop, rows=rows, use_kernels=use_kernels,
+            lo=start, hi=stop, rows=rows, use_kernels=use_kernels, remat=remat,
         )
         if stop in sites:
             site_cache = (layer_slice(caches["shared_attn"], sites.index(stop))
@@ -245,11 +260,20 @@ def branch_logits_stacked(
         return (), None
     idx = [cfg.branch_layers.index(l) for l in present]
     hs = torch.stack([collected[l] for l in present])  # (K, B, S, D)
+    return present, _unembed(params, _stacked_branch_norm(params, hs, idx, cfg), cfg)
+
+
+def _stacked_branch_norm(params: dict, hs: torch.Tensor, idx: Sequence[int],
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Per-branch norm over stacked hiddens ``hs`` (K, ..., D); ``idx[k]``
+    selects head k's row of the stacked branch params.  A parameter-free
+    norm gets ``{}``."""
+    if cfg.norm_type != "rmsnorm":
+        return norm_apply(cfg.norm_type, {}, hs)
     # Python-int row views: no index tensor has to cross to the device.
     scale = torch.stack([params["branches"]["scale"][i] for i in idx])
     bcast = scale.reshape(scale.shape[0], *([1] * (hs.dim() - 2)), -1)
-    hn = norm_apply(cfg.norm_type, {"scale": bcast}, hs)
-    return present, _unembed(params, hn, cfg)
+    return norm_apply(cfg.norm_type, {"scale": bcast}, hs)
 
 
 def branch_logits_per_head(
@@ -259,9 +283,7 @@ def branch_logits_per_head(
     out = {}
     for j, layer in enumerate(cfg.branch_layers):
         if layer in collected:
-            hb = norm_apply(cfg.norm_type,
-                            {"scale": params["branches"]["scale"][j]},
-                            collected[layer])
+            hb = _stacked_branch_norm(params, collected[layer], [j], cfg)
             out[layer] = _unembed(params, hb, cfg)
     return out
 
@@ -342,3 +364,71 @@ def decode_step(
     caches["length"] += 1
     out["caches"] = caches
     return out
+
+
+# ---------------------------------------------------------------- train
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean masked token cross-entropy, fp32 reductions."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - lf.gather(-1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+_NO_FRONTEND = "the port has no {} yet (ROADMAP queue 1: other trunks)"
+
+
+def _embed_inputs(params: dict, inputs: dict,
+                  cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(h (B, S, d), positions (S,)) of a text batch."""
+    if cfg.frontend != "none" or cfg.arch_type == "audio":
+        raise NotImplementedError(_NO_FRONTEND.format(f"{cfg.frontend!r} frontend"))
+    h = embed(params["embed"], inputs["tokens"], compute_dtype(cfg))
+    return h, torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+
+
+def forward_train(params: dict, batch: dict, cfg: ModelConfig) -> dict[str, Any]:
+    """The joint BranchyNet training loss (paper Sec. III, BranchyNet [5]):
+    main CE + ``branch_loss_weight`` x sum_k CE_k (+ the MoE aux loss,
+    zero: the port has no MoE trunk).  ``batch``: ``tokens`` and
+    ``labels`` (B, S), optional ``mask``; token t predicts label t + 1.
+
+    Each head's loss runs under ``recomputed``: otherwise the (B, S, V)
+    logits of every head would be saved for the backward pass in fp32.
+    All K branch heads share one stacked norm and one unembedding (the
+    serving runtime prices them the same way); the backward pass's
+    recompute materializes all K heads' logits at once."""
+    if cfg.use_mtp:
+        raise NotImplementedError(_NO_FRONTEND.format("multi-token prediction"))
+    h, positions = _embed_inputs(params, batch, cfg)
+    h2, _, collected = run_trunk(params, h, cfg, positions,
+                                 collect=cfg.branch_layers, remat=cfg.remat)
+    labels = batch["labels"][:, 1:]
+    mask = batch.get("mask")
+    mask = None if mask is None else mask[:, 1:]
+
+    def head_loss(h):
+        hn = norm_apply(cfg.norm_type, params["final_norm"], h)
+        return softmax_xent(_unembed(params, hn, cfg)[:, :-1], labels, mask)
+
+    main_loss = recomputed(head_loss, h2)
+    branch_losses: dict[str, torch.Tensor] = {}
+    present = tuple(l for l in cfg.branch_layers if l in collected)
+    if present:
+        idx = [cfg.branch_layers.index(l) for l in present]
+
+        def branch_loss(hs):
+            logits = _unembed(params, _stacked_branch_norm(params, hs, idx, cfg), cfg)
+            return torch.stack([softmax_xent(lg[:, :-1], labels, mask) for lg in logits])
+
+        bl = recomputed(branch_loss, torch.stack([collected[l] for l in present]))
+        for k, layer in enumerate(present):
+            branch_losses[f"branch_{layer}"] = bl[k]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    loss = main_loss + cfg.branch_loss_weight * sum(branch_losses.values())
+    loss = loss + cfg.router_aux_weight * aux
+    return {"loss": loss, "main_loss": main_loss, "aux_loss": aux,
+            "branch_losses": branch_losses}

@@ -5,8 +5,11 @@ trunk and Zamba2's shared attention block) and ``BlockKind("mamba",
 
 Parameters keep the reference's stacked layout: every leaf of a stack
 carries a leading ``(n_layers,)`` axis.  A Python loop over the layers
-takes the place of ``lax.scan``; each layer reads its slice of the stacked
-params and of the stacked caches (views, so cache writes land in place).
+takes the place of ``lax.scan``.  A forward unbinds each stacked leaf once
+(:func:`unstack`) and each layer reads its views; each layer's cache is a
+view of the stacked caches (:func:`layer_slice`), so cache writes land in
+place.  ``remat`` is the reference's ``jax.checkpoint`` around each layer:
+``torch.utils.checkpoint`` per block when gradients are on.
 """
 
 from __future__ import annotations
@@ -14,11 +17,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
-from repro_torch.models.layers import mlp_apply, norm_apply, truncated_normal_
+from repro_torch.models.layers import mlp_apply, norm_apply, norm_init, truncated_normal_
 
 __all__ = [
     "BlockKind",
@@ -26,7 +30,9 @@ __all__ = [
     "init_block_cache",
     "layer_slice",
     "run_stack",
+    "recomputed",
     "stack_init",
+    "unstack",
 ]
 
 _PORTED = {("gqa", "dense"), ("mamba", "none")}
@@ -51,6 +57,30 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, lo: int, hi: int) -> dict:
+    """Layers ``[lo, hi)`` of a stacked tree, keyed by layer index, each
+    leaf a view.  One ``torch.unbind`` per leaf: under autograd its
+    backward stacks the layers' gradients into one buffer, where indexing
+    each layer (:func:`layer_slice`) adds a zero-filled gradient the size
+    of the whole stack per layer.  Only the layers asked for are unbound
+    (a whole stack is unbound as it is: no slice adds a copy to its
+    backward)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, lo, hi) for k, v in tree.items()}
+        return {i: {k: p[i] for k, p in parts.items()} for i in range(lo, hi)}
+    part = tree if (lo, hi) == (0, tree.shape[0]) else tree[lo:hi]
+    return dict(zip(range(lo, hi), torch.unbind(part)))
+
+
+def recomputed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of saved (the reference's ``jax.checkpoint``); a plain call
+    when gradients are off."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
                generator: torch.Generator, device) -> dict:
     """Random fp32 params of ``n_layers`` blocks, stacked: fan-in scaled
@@ -65,7 +95,10 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
     def ones(*shape):
         return torch.ones((n, *shape), device=device)
 
-    p: dict = {"norm1": {"scale": ones(d)}}
+    def norm():
+        return norm_init(cfg.norm_type, d, device, (n,))
+
+    p: dict = {"norm1": norm()}
     if kind.mixer == "gqa":
         p["attn"] = {
             "wq": proj(d, cfg.q_dim),
@@ -79,7 +112,7 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
     else:
         p["mamba"] = mamba_mod.mamba_init(cfg, n, generator, device)
     if kind.mlp == "dense":
-        p["norm2"] = {"scale": ones(d)}
+        p["norm2"] = norm()
         p["mlp"] = {
             "w_gate": proj(d, ff),
             "w_up": proj(d, ff),
@@ -134,7 +167,7 @@ def block_apply(
 
 
 def run_stack(
-    stacked_params: dict,
+    layers: dict,
     h: torch.Tensor,
     cfg: ModelConfig,
     kind: BlockKind,
@@ -145,12 +178,18 @@ def run_stack(
     hi: int,
     rows=None,
     use_kernels: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Run layers ``[lo, hi)`` of a stack over the residual stream; stacked
-    ``caches`` are updated in place."""
+    """Run layers ``[lo, hi)`` of a stack (``layers``: :func:`unstack` of
+    its params, holding at least those layers) over the residual stream;
+    stacked ``caches`` are updated in place.  ``remat`` (cache-free, gradients on) recomputes each block in
+    the backward pass instead of saving its activations."""
     for i in range(lo, hi):
+        if remat and caches is None:
+            h = recomputed(block_apply, layers[i], h, cfg, kind, positions)
+            continue
         h = block_apply(
-            layer_slice(stacked_params, i), h, cfg, kind, positions,
+            layers[i], h, cfg, kind, positions,
             layer_slice(caches, i) if caches is not None else None,
             rows=rows, use_kernels=use_kernels,
         )

@@ -69,12 +69,13 @@ class ServingEngine(ServesRequests):
     use_kernels: bool | None = None  # None = cfg, then auto
     heads_batched: bool = True  # one stacked exit decision per step
     slots: int = 8  # request-scheduler KV slots (submit/run/drain)
+    graphs: bool | None = None  # None = CUDA graphs on CUDA, eager on the CPU
 
     def __post_init__(self):
         self._exec = TierExecutor(
             self.cfg, self.params, segments_for_cuts(self.cfg, ()),
             use_kernels=self.use_kernels, batched_heads=self.heads_batched,
-            device=self.device,
+            device=self.device, graphs=self.graphs,
         )
         self.device = self._exec.device
         self.params = self._exec.params

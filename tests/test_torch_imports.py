@@ -30,7 +30,11 @@ for name in ("repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b
              "repro_torch.serving.controller", "repro_torch.examples.quickstart",
              "repro_torch.examples.partition_sweep", "repro_torch.serving.faults",
              "repro_torch.configs.qwen3_8b",
-             "repro_torch.examples.serve_partitioned"):
+             "repro_torch.examples.serve_partitioned", "repro_torch.configs.olmo_1b",
+             "repro_torch.training.tree", "repro_torch.training.optimizer",
+             "repro_torch.training.train_loop", "repro_torch.training.checkpoint",
+             "repro_torch.data.pipeline", "repro_torch.examples.train_branchy",
+             "repro_torch.benchmarks.fig6_calibration"):
     assert name in names, name
 """
 
@@ -41,7 +45,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 47
+    assert n_modules >= 57
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

@@ -48,7 +48,12 @@ from repro_torch import bridge
 from repro_torch.configs import ModelConfig
 from repro_torch.core import TierSpec
 from repro_torch.models import model as TM
-from repro_torch.serving import MultiTierServer, TierExecutor, segments_for_cuts
+from repro_torch.serving import (
+    MultiTierServer,
+    ServingEngine,
+    TierExecutor,
+    segments_for_cuts,
+)
 
 B = 8
 
@@ -198,6 +203,17 @@ class TestSegmentCache:
         with pytest.raises(ValueError, match="graphs=True needs a CUDA device"):
             TierExecutor(tcfg, tp, segments_for_cuts(tcfg, (2,)), device="cpu",
                          graphs=True)
+
+    def test_serving_engine_passes_graphs(self, weights):
+        """``ServingEngine(graphs=...)`` reaches its executor: False is the
+        eager engine anywhere, True on the CPU raises."""
+        _, tp = _params(weights, (1, 3))
+        _, tcfg = _cfgs()
+        assert ServingEngine(tcfg, tp, context_len=32, device="cpu").executor.graphs is False
+        eng = ServingEngine(tcfg, tp, context_len=32, device="cpu", graphs=False)
+        assert eng.executor.graphs is False
+        with pytest.raises(ValueError, match="graphs=True needs a CUDA device"):
+            ServingEngine(tcfg, tp, context_len=32, device="cpu", graphs=True)
 
 
 class TestProbeSteps:
