@@ -36,7 +36,12 @@ exit) if any phase fails:
      its device time and bound (and SDPA's GQA mode beside flash_decode);
      the train_branchy example's serving leg's shapes: the exit kernel at
      K = 1, B = 16, V = 512 and flash_decode at B = 16, Kh = 4, G = 1,
-     D = 64 over a 96-slot ring;
+     D = 64 over a 96-slot ring; the later served layouts: the exit kernel
+     at Phi-3-medium's V = 100,352 (K = 2, 3) and InternVL2's V = 128,256
+     (K = 3), flash_decode at Phi-3-medium's Kh = 10, G = 4,
+     Qwen3-30B-A3B's Kh = 4, G = 8 and InternVL2's Kh = 8, G = 8 (D = 128),
+     each bitwise per head and per row, with device time and bound (and
+     SDPA's GQA time);
   4. end to end — four paths, each a ``PartitionedServer`` at full
      published width and depth with random weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
@@ -47,7 +52,23 @@ exit) if any phase fails:
        * Mamba2-130M (attention-free, tied embeddings, 152 vocabulary pad
          lanes), split 18, edge branches 6 and 12;
        * Qwen3-8B (dense GQA with qk-norm, bf16 params, vocabulary
-         151,936), split 20, edge branches 9 and 18.
+         151,936), split 20, edge branches 9 and 18;
+       * Phi-3-medium 14B (dense GQA, Kh = 10, bf16 params, vocabulary
+         100,352), split 21, edge branches 10 and 20, served at the median
+         threshold only;
+       * Qwen3-30B-A3B (48 GQA + routed-expert layers: 128 experts, top-8,
+         the reference's einsum dispatch; bf16 params, 61 GB), split 25,
+         edge branches 12 and 24.  Kernel vs plain: its first steps are
+         also run on eager twins of both paths that record every MoE
+         layer's router logits and top-k; a row whose logits (or entropy,
+         or exit mask) differ beyond the bound is listed instead of
+         compared only when its routing (top-k set or kept experts) differs
+         at some layer and the first layer where a top-k set differs shows
+         a flip at a near-tie: each differing token's top-k margin within
+         8 bf16 ulps of its k-th logit, the two paths' router logits within
+         8 bf16 ulps of their scale at every layer up to that one.
+     The bf16-param cells log ``init_params``' peak memory beside the
+     params' size.
      For each: the admission's last-position logits and the first decode
      step on the kernel path against the plain path (logits within 8 bf16
      ulps at their scale, pad lanes left out; a row whose first decode input
@@ -128,6 +149,16 @@ exit) if any phase fails:
      non-increasing in p and the split non-increasing in gamma on every
      curve and logging the profile-dependent claims; Dijkstra ==
      ``solve_chain_torch`` == the sweep at both ends of every Fig. 5 curve.
+
+  4c. vlm engine — InternVL2 (d 8192, 64 heads and 8 KV heads of 128,
+     d_ff 28,672, vocabulary 128,256) at full width with its depth cut to
+     16 of 80 layers (branches 4, 8, 12), bf16 params, on the K=1
+     ``ServingEngine``: ``start`` on 8 prompts of 1,024 seeded patch
+     embeddings and 128 tokens (``pos`` = 1,152), then 16 decode steps on a
+     graphed engine held bitwise against its eager twin; the first step
+     against a plain engine (logits within 8 bf16 ulps, branch entropies
+     within 1e-5 + 2 x each row's first-order bound); one exit launch a
+     step for all three heads, ``flash_decode`` in every layer.
 
   7. example — ``python -m repro_torch.examples.serve_partitioned`` on the
      card at its smoke size, in a process of its own; it must exit 0.
@@ -221,6 +252,8 @@ class E2EPath:
     single_head: bool = False
     partition: str = ""  # "full": profile, calibrate, solve, serve; "profile"
     link: bool = False  # the link, pipelined overlap and the fault plane
+    bf16_params: bool = False  # the config's fp32 params would not fit
+    median_only: bool = False  # serve at the median threshold only
 
 
 PATHS = (
@@ -234,6 +267,11 @@ PATHS = (
             ("ssd_update", "ssd_scan", "entropy_exit_argmax_heads")),
     E2EPath("qwen3_8b", 20, NEW_TOKENS, 9,
             ("flash_decode", "entropy_exit_argmax_heads"), link=True),
+    E2EPath("phi3_medium_14b", 21, NEW_TOKENS, 10,
+            ("flash_decode", "entropy_exit_argmax_heads"), bf16_params=True,
+            median_only=True),
+    E2EPath("qwen3_moe_30b_a3b", 25, NEW_TOKENS, 12,
+            ("flash_decode", "entropy_exit_argmax_heads"), bf16_params=True),
 )
 
 
@@ -539,40 +577,46 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
         e, _ = compare(f"entropy_exit_argmax_heads {label}", lg, th)
         worst = max(worst, e)
     check(widths == {1, 8}, f"every load width the launcher picks ran: {sorted(widths)}")
-    # Qwen3-8B's vocabulary (V = 151,936: 18,992 logits per cluster block)
-    # at the K=2 decision of its served edge and a K=3 pile (the degraded
-    # step's fallback joins the stack; the K=1 engine's three heads), from a
-    # generator of its own.
-    vq = 151936
-    lq = (torch.randn((3, b, vq), generator=torch.Generator(device=dev).manual_seed(
-        SEED + 3), device=dev) * 4).to(torch.bfloat16)
-    thq = ref.entropy_exit_argmax_heads_ref(lq, 0.5)[0].median(dim=1).values.float()
-    log(f"entropy_exit: Qwen3-8B V={vq} in {split_plan(vq)[1]} splits of "
-        f"{split_plan(vq)[0]}")
-    qwen3 = {}
-    for kk in (2, 3):
-        lg, th = lq[:kk], thq[:kk]
-        e, out = compare(f"entropy_exit_argmax_heads Qwen3-8B K={kk} B={b}", lg, th)
-        worst = max(worst, e)
-        heads = all(same([o[h] for o in out],
-                         [o[0] for o in entropy_exit_argmax_heads_cuda(lg[h:h + 1],
-                                                                       th[h:h + 1])])
-                    for h in range(kk))
-        alone = all(same([o[h, i] for o in out],
-                         [o[0, 0] for o in entropy_exit_argmax_heads_cuda(
-                             lg[h, i:i + 1][None], th[h:h + 1])])
-                    for h in range(kk) for i in range(b))
-        torch.cuda.synchronize()
-        check(heads and alone, f"Qwen3-8B K={kk}: each head slice bitwise equal to its "
-              f"K=1 launch and each of the {kk * b} rows to the row launched alone")
-        ms, src, _ = device_ms(lambda lg=lg, th=th: entropy_exit_argmax_heads_cuda(lg, th),
-                               "entropy_exit_argmax_kernel")
-        bms, by = bound(lg.numel() * 2 + kk * 4 + kk * b * (4 + 1 + 4), 5 * lg.numel())
-        check(ms >= bms, f"Qwen3-8B K={kk}: device time {ms:.5f} ms not below its "
-              f"bound {bms:.5f} ms")
-        log(f"  entropy_exit_argmax_heads Qwen3-8B K={kk}: {ms:.4f} ms on the device "
-            f"({src}), bound {bms:.5f} ms ({by})")
-        qwen3[f"qwen3_k{kk}_ms"], qwen3[f"qwen3_k{kk}_bound_ms"] = ms, bms
+    # The served configs' vocabularies, each from a generator of its own:
+    # Qwen3-8B's and Qwen3-30B-A3B's V = 151,936 (18,992 logits per cluster
+    # block) at the K=2 decision of the served edge and a K=3 pile (the
+    # degraded step's fallback joins the stack; the K=1 engine's three
+    # heads); Phi-3-medium's V = 100,352 at K = 2 and 3; InternVL2's
+    # V = 128,256 at K = 3 (its K=1 engine: all three heads in one launch).
+    wide = {}
+    for label, key, vq, ks, seed in (("Qwen3-8B", "qwen3", 151936, (2, 3), SEED + 3),
+                                     ("Phi-3-medium", "phi3_medium", 100352, (2, 3),
+                                      SEED + 6),
+                                     ("InternVL2", "internvl2", 128256, (3,), SEED + 7)):
+        lq = (torch.randn((3, b, vq), generator=torch.Generator(device=dev).manual_seed(
+            seed), device=dev) * 4).to(torch.bfloat16)
+        thq = ref.entropy_exit_argmax_heads_ref(lq, 0.5)[0].median(dim=1).values.float()
+        log(f"entropy_exit: {label} V={vq} in {split_plan(vq)[1]} splits of "
+            f"{split_plan(vq)[0]}")
+        for kk in ks:
+            lg, th = lq[:kk], thq[:kk]
+            e, out = compare(f"entropy_exit_argmax_heads {label} K={kk} B={b}", lg, th)
+            worst = max(worst, e)
+            heads = all(same([o[h] for o in out],
+                             [o[0] for o in entropy_exit_argmax_heads_cuda(lg[h:h + 1],
+                                                                           th[h:h + 1])])
+                        for h in range(kk))
+            alone = all(same([o[h, i] for o in out],
+                             [o[0, 0] for o in entropy_exit_argmax_heads_cuda(
+                                 lg[h, i:i + 1][None], th[h:h + 1])])
+                        for h in range(kk) for i in range(b))
+            torch.cuda.synchronize()
+            check(heads and alone, f"{label} K={kk}: each head slice bitwise equal to "
+                  f"its K=1 launch and each of the {kk * b} rows to the row launched alone")
+            ms, src, _ = device_ms(
+                lambda lg=lg, th=th: entropy_exit_argmax_heads_cuda(lg, th),
+                "entropy_exit_argmax_kernel")
+            bms, by = bound(lg.numel() * 2 + kk * 4 + kk * b * (4 + 1 + 4), 5 * lg.numel())
+            check(ms >= bms, f"{label} K={kk}: device time {ms:.5f} ms not below its "
+                  f"bound {bms:.5f} ms")
+            log(f"  entropy_exit_argmax_heads {label} K={kk}: {ms:.4f} ms on the device "
+                f"({src}), bound {bms:.5f} ms ({by})")
+            wide[f"{key}_k{kk}_ms"], wide[f"{key}_k{kk}_bound_ms"] = ms, bms
     errs["entropy_exit_argmax_heads"] = worst
     rows = []
     for name, lg, th, replaces in main_cases:
@@ -584,7 +628,7 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
             lambda lg=lg, th=th: ref.entropy_exit_argmax_heads_ref(lg, th),
             nbytes=n * 2 + lg.shape[0] * 4 + lg.shape[0] * b * (4 + 1 + 4),
             flops=5 * n,  # max, sub, exp, add, fma per element
-            **(qwen3 if name == "entropy_exit_argmax_heads" else {})))
+            **(wide if name == "entropy_exit_argmax_heads" else {})))
 
     # The no-argmax form: Zamba2's width, and Mamba2-130M's padded width
     # whose 152 pad lanes (-1e30) still count in the log-width normalizer.
@@ -805,21 +849,29 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     err = max(err, compare("train_branchy decode (B=16, Kh=4, G=1, D=64, C=96)", tb, 0))
     err = max(err, layout_sweep(torch, dev, gen))
 
-    # Qwen3-8B's serving layout: Kh = 8 KV heads of D = 128, G = 4 query
-    # heads on each (the FD_TRY(4, 8, 16, 1) instantiation), ~1,100 valid
-    # slots of 4096; four input sets (0.5 GB of cache) in turn.
-    qgen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    qwen_sets = [serving_case(torch, dev, qgen, kh=8, d=128, g=4) for _ in range(4)]
-    qq, qk, qv, qkp, qqp, qrows = qwen_sets[0]
-    log(f"flash_decode: Qwen3-8B serving layout B=Bc={b} C={c} Kh=8 G=4 D=128 bf16, "
-        f"q_pos {qqp.tolist()}, one sentinel row")
-    err = max(err, compare("Qwen3-8B serving layout (Kh=8, G=4, D=128)", qwen_sets[0], 0))
-    whole = flash_decode_cuda(qq, qk, qv, qkp, qqp, qrows)
-    alone = torch.cat([flash_decode_cuda(qq[i:i + 1], qk, qv, qkp, qqp[i:i + 1],
-                                         qrows[i:i + 1]) for i in range(b)])
-    torch.cuda.synchronize()
-    check(bool(torch.equal(whole, alone)), "flash_decode Qwen3-8B layout: every row "
-          "of the batch of 8 bitwise equal to the row alone")
+    # The served GQA layouts at D = 128, ~1,100 valid slots of 4096, each
+    # from a generator of its own, four input sets in turn: Qwen3-8B (Kh = 8
+    # KV heads, G = 4 query heads on each), Phi-3-medium (Kh = 10, G = 4),
+    # Qwen3-30B-A3B (Kh = 4, G = 8) and InternVL2 (Kh = 8, G = 8).
+    layouts = {}
+    for label, key, lkh, lg_, seed in (("Qwen3-8B", "qwen3", 8, 4, SEED + 4),
+                                       ("Phi-3-medium", "phi3_medium", 10, 4, SEED + 9),
+                                       ("Qwen3-30B-A3B", "qwen3_moe", 4, 8, SEED + 10),
+                                       ("InternVL2", "internvl2", 8, 8, SEED + 11)):
+        lgen = torch.Generator(device=dev).manual_seed(seed)
+        sets = [serving_case(torch, dev, lgen, kh=lkh, d=128, g=lg_) for _ in range(4)]
+        qq, qk, qv, qkp, qqp, qrows = sets[0]
+        log(f"flash_decode: {label} serving layout B=Bc={b} C={c} Kh={lkh} G={lg_} "
+            f"D=128 bf16, q_pos {qqp.tolist()}, one sentinel row")
+        err = max(err, compare(f"{label} serving layout (Kh={lkh}, G={lg_}, D=128)",
+                               sets[0], 0))
+        whole = flash_decode_cuda(qq, qk, qv, qkp, qqp, qrows)
+        alone = torch.cat([flash_decode_cuda(qq[i:i + 1], qk, qv, qkp, qqp[i:i + 1],
+                                             qrows[i:i + 1]) for i in range(b)])
+        torch.cuda.synchronize()
+        check(bool(torch.equal(whole, alone)), f"flash_decode {label} layout: every row "
+              "of the batch of 8 bitwise equal to the row alone")
+        layouts[key] = (label, sets)
 
     def timed(args_sets, label):
         ms, _, _ = device_ms(rotating(flash_decode_cuda, args_sets), "flash_decode")
@@ -833,9 +885,15 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     phase_ms, phase_bound = timed([main], "phase shape")
     d64_ms, _ = timed([z], "D=64 (Zamba2)")
     b1_ms, b1_bound = timed([one], "B=1 full cache")
-    qwen_ms, qwen_bound = timed(qwen_sets, "Qwen3-8B serving layout")
-    qwen_lib = sdpa_ms(*qwen_sets[0])
-    log(f"  SDPA (GQA) on gathered rows at the Qwen3-8B layout: {qwen_lib:.4f} ms")
+    per_layout = {}
+    for key, (label, sets) in layouts.items():
+        lms, lbound = timed(sets, f"{label} serving layout")
+        lib_ms = sdpa_ms(*sets[0])
+        log(f"  SDPA (GQA) on gathered rows at the {label} layout: {lib_ms:.4f} ms")
+        q, k, v, k_pos, q_pos, rows = sets[0]
+        per_layout.update({f"{key}_ms": lms, f"{key}_bound_ms": lbound,
+                           f"{key}_library_ms": lib_ms,
+                           f"{key}_valid_slots": valid_slots(k_pos, q_pos, rows)})
     lib = sdpa_ms(*serve_sets[0])
     phase_lib = sdpa_ms(*main)
     valid = valid_slots(skp, sqp, srows)
@@ -851,9 +909,7 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
         shape=f"serving: B=Bc={b} C={c} Kh={kh} D={d}, {valid} valid slots",
         phase_shape_ms=phase_ms, phase_shape_bound_ms=phase_bound,
         phase_shape_library_ms=phase_lib, d64_ms=d64_ms, b1_full_ms=b1_ms,
-        b1_full_bound_ms=b1_bound, qwen3_ms=qwen_ms, qwen3_bound_ms=qwen_bound,
-        qwen3_library_ms=qwen_lib,
-        qwen3_valid_slots=valid_slots(qkp, qqp, qrows))]
+        b1_full_bound_ms=b1_bound, **per_layout)]
 
 
 def ssd_inputs(torch, dev, gen, b, l, h, p, n, g, dtype=None, pad=0):
@@ -1885,6 +1941,133 @@ def partition_phase(torch, dev, path: E2EPath, cfg, wparams) -> tuple[list, dict
     return runs, out
 
 
+#: A routing flip is shown when, at the first MoE layer where a token's
+#: top-k expert set differs between the kernel path and the plain path,
+#: each such token's top-k margin (its k-th minus its (k+1)-th router logit
+#: on the plain path) is at most this many bf16 ulps of its k-th logit: the
+#: 8-ulp bound the logits of the two paths are held to.  A flip needs the
+#: two paths' logits to differ by at least half the margin.
+FLIP_ULPS = 8
+
+
+def routed_first_steps(torch, cfg, wparams, server) -> dict:
+    """:func:`first_step` on an eager kernel server and an eager plain
+    server, each recording the router logits and top-k indices of the MoE
+    calls of its decode step (calls of at most SLOTS tokens: the
+    admission's groups are larger).  Returns {kernels: (step, calls)}."""
+    from repro_torch.models import moe
+
+    topk, out = moe.router_topk, {}
+    for kernels in (True, False):
+        calls = []
+
+        def recording(logits, k, calls=calls):
+            w, idx, aux = topk(logits, k)
+            if logits.shape[0] * logits.shape[1] <= SLOTS:
+                calls.append((logits.float().clone(), idx.clone()))
+            return w, idx, aux
+
+        srv = server(cfg, wparams, graphs=False,
+                     **({} if kernels else dict(use_kernels=False)))
+        moe.router_topk = recording
+        try:
+            step = first_step(torch, srv)
+        finally:
+            moe.router_topk = topk
+        del srv
+        released(torch)
+        out[kernels] = (step, calls)
+    return out
+
+
+def routing_divergence(torch, cfg, split, rec, label):
+    """Rows whose MoE routing differs between the kernel path and the
+    plain path in one recorded first step (:func:`routed_first_steps`),
+    and the routing flip that explains them.  A row is touched where its
+    top-k expert set or its keep mask differs at some layer (at a
+    capacity of one slot per expert a flip in one row can drop another
+    row's choice).  Calls of the edge (layers before ``split``) hold the
+    rows in order; the cloud's bucket holds the survivors first, then the
+    rows that exited (each path's own exit mask).  Fails unless every
+    difference follows a flip at a near-tie: at the first layer with a
+    differing top-k set, each differing token's margin is at most
+    FLIP_ULPS bf16 ulps; a keep mask may differ only in a group where a
+    set differs, and a bucket may hold other rows only where the exit
+    masks differ."""
+    import numpy as np
+
+    from repro_torch.models.moe import expert_slots
+
+    (step_k, calls_k), (step_p, calls_p) = rec[True], rec[False]
+    e, k = cfg.num_experts, cfg.experts_per_token
+    check(len(calls_k) == len(calls_p) == cfg.num_layers,
+          f"{label}: both paths recorded one router call per MoE layer "
+          f"({len(calls_k)}, {len(calls_p)} of {cfg.num_layers})")
+
+    def rows_of(layer, exited, t):
+        order = np.argsort(exited.astype(np.uint8), kind="stable")
+        return (np.arange(SLOTS) if layer < split else order)[:t]
+
+    touched = np.zeros(SLOTS, bool)
+    first, margins, moved, composed, worst_agree = None, [], [], [], 0.0
+    for layer, ((lk, ik), (lp, ip)) in enumerate(zip(calls_k, calls_p)):
+        t = ip.shape[1]
+        rk, rp = rows_of(layer, step_k["exited"], ik.shape[1]), rows_of(
+            layer, step_p["exited"], t)
+        if ik.shape != ip.shape or not np.array_equal(rk, rp):
+            touched[rk] = touched[rp] = True
+            composed.append(layer + 1)
+            continue
+        differ = (ik[0].sort(-1).values != ip[0].sort(-1).values).any(-1).cpu().numpy()
+        cap = max(math.ceil(t * k * cfg.capacity_factor / e), 1)
+
+        def kept(idx):  # each token's set of experts that keep its choice
+            return torch.where(expert_slots(idx, e, cap)[1], idx, -1)[0].sort(-1).values
+
+        kdiff = (kept(ik) != kept(ip)).any(-1).cpu().numpy()
+        check(differ.any() or not kdiff.any(),
+              f"{label} layer {layer + 1}: kept expert sets differ only in a group "
+              "whose top-k sets differ")
+        if first is None:
+            # Up to the first flip the router logits track each other.
+            worst_agree = max(worst_agree, float((lk - lp).abs().max()) / bf16_ulps(lp))
+        if differ.any() and first is None:
+            top = lp[0].topk(k + 1, dim=-1).values.cpu().numpy()
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(top[:, k - 1]),
+                                                      2.0 ** -126))) - 7)
+            first = layer + 1
+            margins = ((top[:, k - 1] - top[:, k]) / ulp)[differ].tolist()
+            moved = ((lk[0] - lp[0]).abs().amax(-1).cpu().numpy() / ulp)[differ].tolist()
+        touched[rp[differ | kdiff]] = True
+    check(not composed or not np.array_equal(step_k["exited"], step_p["exited"]),
+          f"{label}: a cloud bucket holds other rows on the two paths only where "
+          f"their exit masks differ (layers {composed})")
+    check(worst_agree <= 1.0,
+          f"{label}: router logits kernel vs plain within 8 bf16 ulps of their scale "
+          f"at every layer up to the first flip (worst at {worst_agree:.3f} of it)")
+    if touched.any() and not composed:
+        check(first is not None and max(margins) <= FLIP_ULPS,
+              f"{label}: the rows whose routing differs {touched.nonzero()[0].tolist()} "
+              f"follow a routing flip at a near-tie: first at layer {first}, top-k "
+              f"margins {margins} bf16 ulps <= {FLIP_ULPS}")
+    log(f"  {label}: routing kernel vs plain path: first differing top-k at layer "
+        f"{first} (margins {margins} bf16 ulps of the k-th logit; the two paths' "
+        f"router logits there {moved} ulps apart), rows whose routing differs "
+        f"{touched.nonzero()[0].tolist()}, other bucket rows at layers {composed}")
+    return touched, dict(first_flip_layer=first, flip_margins_ulps=margins,
+                         flip_logits_apart_ulps=moved, router_agreement=worst_agree,
+                         rows_routed_apart=touched.nonzero()[0].tolist())
+
+
+def same_step(a, b) -> bool:
+    """Two :func:`first_step` results bitwise equal."""
+    import numpy as np
+
+    return (all(np.array_equal(a[f], b[f]) for f in ("tok0", "tokens", "exited"))
+            and all(np.array_equal(a["ents"][l], b["ents"][l]) for l in a["ents"])
+            and a["logits"].equal(b["logits"]))
+
+
 def e2e_phase(torch, dev, path: E2EPath) -> dict:
     import numpy as np
 
@@ -1898,15 +2081,30 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
     from repro_torch.serving import PartitionedServer
 
     cfg0 = get_config(path.arch)
-    split, name = path.split, cfg0.name
+    if path.bf16_params:
+        cfg0 = dataclasses.replace(cfg0, param_dtype="bfloat16")
+    split, name, moe = path.split, cfg0.name, cfg0.arch_type == "moe"
     log(f"end to end: {name} full width and depth ({cfg0.num_layers} layers, "
         f"d_model {cfg0.d_model}, vocab {cfg0.vocab_size} padded to "
         f"{cfg0.padded_vocab_size}, branches {cfg0.branch_layers}, shared-"
-        f"attention sites {hybrid_sites(cfg0)}), split {split}, "
-        f"{SLOTS} slots x {CONTEXT}")
+        f"attention sites {hybrid_sites(cfg0)}"
+        + (f", {cfg0.num_experts} experts, top-{cfg0.experts_per_token}, "
+           f"moe_d_ff {cfg0.moe_d_ff}" if moe else "")
+        + f"), params {cfg0.param_dtype}, split {split}, {SLOTS} slots x {CONTEXT}")
+    released(torch)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = init_params(cfg0, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in tree_tensors(params))
+    init_peak = torch.cuda.max_memory_allocated() - held
+    log(f"  init_params: {nbytes / 1e9:.2f} GB of {cfg0.param_dtype} params "
+        f"({nbytes // (2 if path.bf16_params else 4) / 1e9:.2f} B), peak "
+        f"{init_peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB held before, "
+        f"{init_s:.1f} s")
     cfg_a = dataclasses.replace(cfg0, exit_threshold=0.5)
 
     def server(cfg, weights, **kw):
@@ -1930,14 +2128,12 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
         """8 bf16 ulps at the logits' own scale: the two paths differ only
         in the kernels, each within a few fp32 ulps or one bf16 ulp of its
         plain version; a wrong kernel in any layer moves logits by O(scale)."""
-        scale = float(plain_logits.abs().max())
-        return 8 * 2.0 ** (math.floor(math.log2(scale)) - 7), scale
+        return bf16_ulps(plain_logits), float(plain_logits.abs().max())
 
     def near_tie(plain_logits, d):
         """Rows whose top-2 gap is at most 2 d: with every logit within d of
         the other path's, only these can change their argmax."""
-        top2 = plain_logits.topk(2, dim=-1).values
-        return (top2[:, 0] - top2[:, 1]).cpu().numpy() <= 2 * d
+        return top2_gap(plain_logits) <= 2 * d
 
     # Admission: the prompts' last-position logits, kernel path (the
     # ssd_scan kernel in every Mamba2 layer) against plain path.  Their
@@ -1968,24 +2164,53 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
           f"{name} first decode inputs equal on every row not at an admission "
           f"near-tie (differ on {(~same_in).nonzero()[0].tolist()}, near-ties "
           f"{pre_tie.nonzero()[0].tolist()}); only equal-input rows are compared")
+    routing = {}
+
+    def routed_apart(cfg, kern_, plain_, label):
+        """MoE: rows routed apart by a flip at a near-tie (listed, not
+        compared), from eager twins of both paths that record the router,
+        each bitwise its graphed first step."""
+        if not moe:
+            return np.zeros(SLOTS, bool)
+        rec = routed_first_steps(torch, cfg, wparams, server)
+        check(same_step(rec[True][0], kern_) and same_step(rec[False][0], plain_),
+              f"{label}: the graphed first steps bitwise equal their eager twins "
+              "(kernel and plain)")
+        touched, routing[label] = routing_divergence(torch, cfg, split, rec, label)
+        return touched
+
+    apart = routed_apart(cfg_a, kern, plain, f"{name} threshold 0.5 first step")
     rows_in = torch.as_tensor(same_in, device=dev)
     dlog_tol, scale = logit_bound(plain["logits"][rows_in, :vocab])
-    dlog = float((kern["logits"] - plain["logits"])[rows_in, :vocab].abs().max())
+    row_d = (kern["logits"] - plain["logits"])[:, :vocab].abs().amax(dim=-1).cpu().numpy()
+    # MoE: a row beyond the bound is listed, not compared, only where a
+    # routing flip at a near-tie routed it apart (routing_divergence).
+    listed = same_in & apart & (row_d > dlog_tol)
+    cmp = same_in & ~listed
+    dlog = float(row_d[cmp].max(initial=0.0))
     check(dlog <= dlog_tol,
           f"{name} first step: max |d logit| kernel vs plain {dlog:.4g} <= "
-          f"{dlog_tol:.4g} (8 bf16 ulps at the logits' scale, max |logit| {scale:.3f})")
+          f"{dlog_tol:.4g} (8 bf16 ulps at the logits' scale, max |logit| {scale:.3f}) "
+          f"on {int(cmp.sum())} rows"
+          + (f"; rows {listed.nonzero()[0].tolist()} routed apart by a flip, listed "
+             f"(|d logit| {row_d[listed].round(4).tolist()})" if listed.any() else ""))
     edge = near_tie(plain["logits"][:, :vocab], dlog)
     same = kern["tokens"] == plain["tokens"]
     log(f"  rows at a near-tie (top-2 gap <= 2 x {dlog:.4g}), where the "
         f"paths may pick either token: {edge.nonzero()[0].tolist()}")
-    check(bool((same | edge | ~same_in).all()),
-          f"{name} first-step tokens equal on every equal-input row not at a "
+    check(bool((same | edge | ~cmp).all()),
+          f"{name} first-step tokens equal on every compared row not at a "
           f"near-tie (differ on {(~same).nonzero()[0].tolist()})")
     thr = float(statistics.median(plain["ents"][path.branch].tolist()))
     for layer in plain["ents"]:
-        de = abs(kern["ents"][layer] - plain["ents"][layer])[same_in]
-        check(float(de.max()) < 1e-4,
-              f"{name} branch {layer}: |dH| kernel vs plain {float(de.max()):.3g} < 1e-4")
+        de = abs(kern["ents"][layer] - plain["ents"][layer])
+        over = same_in & (de >= 1e-4)
+        check(not (over & ~apart).any(),
+              f"{name} branch {layer}: |dH| kernel vs plain "
+              f"{float(de[same_in & ~over].max(initial=0.0)):.3g} < 1e-4"
+              + (f"; rows {over.nonzero()[0].tolist()} routed apart by a flip, listed"
+                 if over.any() else ""))
+    same_in = cmp
 
     def launched(run, label):
         check(all(run["launches"][k] > 0 for k in path.kernels),
@@ -2012,26 +2237,35 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
               f"({run_g['captured']} captured), the eager twin none")
         return run_g, run_e, prof_e
 
+    def profiled(srv, run_g, run_e, prof_e, label):
+        """The graphed server's steady decode profiled beside its eager
+        twin's; idle shares and the summary line."""
+        prof_g = profile_decode(torch, srv, label)
+        check(prof_g["replayed"] > 0, f"{label}: the profiled steps replayed "
+              f"{prof_g['replayed']} graphs")
+        # The profiler's own host cost stretches its window: the idle share
+        # is also read against the unprofiled run's median step.
+        idle = {k: 1.0 - p["device_ms_per_step"] / r["decode_step_ms"]
+                for k, p, r in (("graphs", prof_g, run_g), ("eager", prof_e, run_e))}
+        log(f"  {label}, graphs / eager: decode step "
+            f"{run_g['decode_step_ms']:.3f} / {run_e['decode_step_ms']:.3f} ms (host "
+            f"clock), device {prof_g['device_ms_per_step']:.3f} / "
+            f"{prof_e['device_ms_per_step']:.3f} ms per step, idle share "
+            f"{prof_g['device_idle_share']:.3f} / {prof_e['device_idle_share']:.3f} in "
+            f"the profiled window ({prof_g['wall_ms_per_step']:.3f} / "
+            f"{prof_e['wall_ms_per_step']:.3f} ms per step there), 1 - device / step "
+            f"{idle['graphs']:.3f} / {idle['eager']:.3f}, {run_g['tokens_per_s']:.1f} / "
+            f"{run_e['tokens_per_s']:.1f} tokens/s")
+        return prof_g, idle
+
     stamp(f"{name}: first steps checked")
-    run_a, run_ae, prof_ae = twin_runs(srv, cfg_a, f"{name} threshold 0.5",
-                                       profile=True)
-    launched(run_a, "threshold 0.5")
-    prof_a = profile_decode(torch, srv, f"{name} threshold 0.5")
-    check(prof_a["replayed"] > 0, f"{name} threshold 0.5: the profiled steps "
-          f"replayed {prof_a['replayed']} graphs")
-    # The profiler's own host cost stretches its window: the idle share is
-    # also read against the unprofiled run's median step.
-    idle = {k: 1.0 - p["device_ms_per_step"] / r["decode_step_ms"]
-            for k, p, r in (("graphs", prof_a, run_a), ("eager", prof_ae, run_ae))}
-    log(f"  {name} graphs / eager (threshold 0.5): decode step "
-        f"{run_a['decode_step_ms']:.3f} / {run_ae['decode_step_ms']:.3f} ms (host "
-        f"clock), device {prof_a['device_ms_per_step']:.3f} / "
-        f"{prof_ae['device_ms_per_step']:.3f} ms per step, idle share "
-        f"{prof_a['device_idle_share']:.3f} / {prof_ae['device_idle_share']:.3f} in "
-        f"the profiled window ({prof_a['wall_ms_per_step']:.3f} / "
-        f"{prof_ae['wall_ms_per_step']:.3f} ms per step there), 1 - device / step "
-        f"{idle['graphs']:.3f} / {idle['eager']:.3f}, {run_a['tokens_per_s']:.1f} / "
-        f"{run_ae['tokens_per_s']:.1f} tokens/s")
+    runs_a = []
+    if not path.median_only:
+        run_a, run_ae, prof_ae = twin_runs(srv, cfg_a, f"{name} threshold 0.5",
+                                           profile=True)
+        launched(run_a, "threshold 0.5")
+        prof_a, idle = profiled(srv, run_a, run_ae, prof_ae, f"{name} threshold 0.5")
+        runs_a = [run_a, run_ae]
     del srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -2049,27 +2283,35 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
     # either path, as may a row whose first decode input differs; such rows
     # are listed, not compared.
     near = kern_b["tok0"] != plain_b["tok0"]
+    apart_b = routed_apart(cfg_b, kern_b, plain_b, f"{name} median threshold first step")
     for layer, e in plain_b["ents"].items():
         near |= (e < thr) != (kern_b["ents"][layer] < thr)
     far = ~near
     for layer, e in plain_b["ents"].items():
         computed = far & (e != 0) & (kern_b["ents"][layer] != 0)
-        de = float(np.abs(kern_b["ents"][layer] - e)[computed].max(initial=0.0))
-        check(de < 1e-4, f"{name} median threshold, first step: branch {layer} "
-              f"|dH| kernel vs plain {de:.3g} < 1e-4")
-    masks_equal = bool((kern_b["exited"] == plain_b["exited"])[far].all()) and all(
-        bool((kern_b["takes"][l] == plain_b["takes"][l])[far].all())
-        for l in plain_b["takes"])
+        de_rows = np.abs(kern_b["ents"][layer] - e)
+        over = computed & (de_rows >= 1e-4)
+        de = float(de_rows[computed & ~over].max(initial=0.0))
+        check(not (over & ~apart_b).any(),
+              f"{name} median threshold, first step: branch {layer} "
+              f"|dH| kernel vs plain {de:.3g} < 1e-4"
+              + (f"; rows {over.nonzero()[0].tolist()} routed apart by a flip, listed"
+                 if over.any() else ""))
+    mask_diff = (kern_b["exited"] != plain_b["exited"]) | np.any(
+        [kern_b["takes"][l] != plain_b["takes"][l] for l in plain_b["takes"]], axis=0)
+    masks_equal = not (mask_diff & far & ~apart_b).any()
     check(bool(plain_b["exited"].any()),
           f"{name} median threshold, first step: rows exit on the edge "
           f"({plain_b['exited'].astype(int).tolist()})")
     check(masks_equal,
           f"{name} median threshold, first step: exit masks and per-branch takes "
           f"kernel vs plain equal on rows whose entropies do not straddle the "
-          f"threshold (rows at the edge: {near.nonzero()[0].tolist()})")
-    stay = far & ~plain_b["exited"]
+          f"threshold (rows at the edge: {near.nonzero()[0].tolist()})"
+          + (f"; rows {(mask_diff & far).nonzero()[0].tolist()} routed apart by a "
+             "flip, listed" if (mask_diff & far).any() else ""))
     row_dlog = (kern_b["logits"] - plain_b["logits"])[:, :vocab].abs().amax(
         dim=-1).cpu().numpy()
+    stay = far & ~plain_b["exited"] & ~(mask_diff | (apart_b & (row_dlog > dlog_tol)))
     dlog_b = float(row_dlog[stay].max()) if stay.any() else 0.0
     check(dlog_b <= dlog_tol, f"{name} median threshold, first step: max |d logit| "
           f"on rows that stay {dlog_b:.4g} <= {dlog_tol:.4g}")
@@ -2081,7 +2323,13 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
           f"{(edge_b & stay).nonzero()[0].tolist()})")
     stamp(f"{name}: threshold 0.5 runs done; median threshold first steps checked")
     # A forced overflow re-run at the third step: the hints pinned to 1.
-    run_b, run_be, _ = twin_runs(srv, cfg_b, f"{name} threshold {thr:.6f}", pin_at=2)
+    run_b, run_be, prof_be = twin_runs(srv, cfg_b, f"{name} threshold {thr:.6f}",
+                                       pin_at=2, profile=path.median_only)
+    if path.median_only:
+        run_a, run_ae = run_b, run_be
+        prof_a, idle = profiled(srv, run_b, run_be, prof_be,
+                                f"{name} threshold {thr:.6f}")
+        prof_ae = prof_be
     check(run_b["exits"] > 0 and min(run_b["cloud_buckets"]) < SLOTS,
           f"{name} median threshold: rows exit on the edge and the cloud runs "
           f"compacted buckets {run_b['cloud_buckets']}")
@@ -2089,7 +2337,7 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
           f"{name} median threshold: the pinned hints forced "
           f"{run_b['overflow_retries']} overflow re-runs, on both twins")
     launched(run_b, "median threshold")
-    runs = [run_a, run_b, run_ae, run_be]
+    runs = [*runs_a[:1], run_b, *runs_a[1:], run_be]
     if path.partition == "full":
         runs += swap_phase(torch, srv, 16)
     del srv
@@ -2120,9 +2368,13 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
     del wparams
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"  {name}: max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"since its init (params {nbytes / 1e9:.2f} GB)")
     return dict(arch=path.arch, runs=runs, profile=prof_a, profile_eager=prof_ae,
                 idle_from_step=idle, threshold=thr,
-                partition=partition, link=link,
+                partition=partition, link=link, routing=routing,
+                init_params_gb=nbytes / 1e9, init_params_peak_gb=init_peak / 1e9,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                 admission_max_dlogit=dpre, admission_dlogit_bound=pre_tol,
                 first_step_max_dlogit=dlog, first_step_dlogit_bound=dlog_tol,
                 first_step_rows_compared=int(same_in.sum()))
@@ -2147,6 +2399,15 @@ def server_at(cfg, wparams, split, dev, **kw):
 def released(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def tree_tensors(tree):
+    """Every tensor of a params tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_tensors(v)
+    else:
+        yield tree
 
 
 def link_phase(torch, dev, cfg_a, cfg_b, wparams, step_ms: float,
@@ -2452,6 +2713,221 @@ def controller_fault_phase(torch, dev, cfg, wparams) -> tuple[list, dict]:
     released(torch)
     return [dict(label=f"{cfg.name} K=3 fault fleet under the controller",
                  launches=launches)], out
+
+
+def bf16_ulps(x, n: int = 8) -> float:
+    """``n`` bf16 ulps at the scale (largest magnitude) of ``x``."""
+    return n * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+
+def top2_gap(x):
+    """Each row's gap between its two largest values (numpy)."""
+    top = x.topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu().numpy()
+
+
+def entropy_slope(torch, logits):
+    """Each row's first-order sensitivity of the normalized entropy to a
+    change of its logits: sum p |log p + H| / log V (numpy).  A row whose
+    logits move by at most d moves its entropy by at most about d times
+    this."""
+    logp = torch.log_softmax(logits, dim=-1)
+    pr = logp.exp()
+    h_nats = -(pr * logp).sum(-1, keepdim=True)
+    return ((pr * (logp + h_nats).abs()).sum(-1) / math.log(logits.shape[-1])).cpu().numpy()
+
+
+#: InternVL2-76B's language trunk at full width, its depth cut from 80 to
+#: 16 layers (70.6 B params would be 141 GB in bf16), branches at the
+#: quarter points of the cut trunk, as the reference's sit at 20, 40, 60.
+VLM_LAYERS, VLM_BRANCHES, VLM_STEPS = 16, (4, 8, 12), 16
+
+
+def vlm_phase(torch, dev) -> dict:
+    """InternVL2 on the K=1 ``ServingEngine`` at full width, 16 layers:
+    ``start`` on 8 prompts of 1,024 patch embeddings (a seeded
+    ``torch.Generator``) and 128 tokens, ``pos`` = 1,152; then 16 decode
+    steps on a graphed engine and an eager twin, held bitwise (tokens,
+    exit masks, entropies, logits), the first step also against a plain
+    engine (``use_kernels=False``: logits within 8 bf16 ulps of their
+    scale, entropies within 1e-4, exit masks equal off the threshold's
+    edge, tokens equal away from near-ties); the graphed run launches
+    the exit kernel once a step for all three heads (K = 3, V = 128,256)
+    and ``flash_decode`` in every layer (Kh = 8, G = 8)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServingEngine, tiers
+
+    cfg = dataclasses.replace(get_config("internvl2_76b"), num_layers=VLM_LAYERS,
+                              branch_layers=VLM_BRANCHES)
+    name, thr = cfg.name, cfg.exit_threshold
+    check(cfg.param_dtype == "bfloat16" and cfg.frontend == "vision"
+          and cfg.num_patches == 1024,
+          f"{name}: the published config's bf16 params and 1,024-patch vision prompts")
+    log(f"vlm engine: {name} at full width (d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads, {cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), depth cut to {cfg.num_layers} of 80 layers, branches "
+        f"{cfg.branch_layers}, K=1 engine, {N_REQ} prompts of {cfg.num_patches} patches "
+        f"+ {PROMPT} tokens, {CONTEXT} slots each")
+    released(torch)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_tensors(params))
+    init_peak = torch.cuda.max_memory_allocated() - held
+    log(f"  init_params: {nbytes / 1e9:.2f} GB of bf16 params ({nbytes // 2 / 1e9:.2f} B), "
+        f"peak {init_peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB held before, "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (N_REQ, PROMPT)).astype(np.int32)
+    patches = torch.randn((N_REQ, cfg.num_patches, cfg.d_model), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+    inputs = {"tokens": tokens, "patch_embeds": patches}
+    engines = {
+        "graphed": ServingEngine(cfg, params, context_len=CONTEXT, device=dev),
+        "eager": ServingEngine(cfg, params, context_len=CONTEXT, device=dev, graphs=False),
+        "plain": ServingEngine(cfg, params, context_len=CONTEXT, device=dev,
+                               use_kernels=False, graphs=False),
+    }
+    ex = {k: e.executor for k, e in engines.items()}
+    check(ex["graphed"].use_kernels and ex["graphed"].graphs and ex["eager"].use_kernels
+          and not ex["eager"].graphs and not ex["plain"].use_kernels,
+          f"{name}: a graphed kernel engine, its eager twin and an eager plain engine")
+    states = {}
+    for k, e in engines.items():
+        ts = time.perf_counter()
+        states[k] = e.start(inputs)
+        torch.cuda.synchronize()
+        if k == "graphed":
+            start_s = time.perf_counter() - ts
+    want = cfg.num_patches + PROMPT
+    check(all(st["pos"] == want == 1152 and int(st["caches"]["length"]) == want
+              for st in states.values()),
+          f"{name}: start counts the patches: pos = {cfg.num_patches} + {PROMPT} = "
+          f"{[st['pos'] for st in states.values()]}, cache length too")
+    check(all(states[k]["last_logits"].equal(states["plain"]["last_logits"])
+              for k in ("graphed", "eager")),
+          f"{name}: the three engines' prefill logits bitwise equal (a dense prefill "
+          "runs no kernel)")
+    tok = states["plain"]["last_logits"].argmax(-1).to(torch.int32)[:, None]
+
+    stacked, branch = tiers.branch_logits_stacked, {}
+
+    def decode(key, n, tok):
+        """n steps of one engine; the eager engines' first step records its
+        stacked branch logits (K, B, V)."""
+        e, st, out, step_s = engines[key], states[key], [], []
+
+        def recording(params_, got, cfg_, layers):
+            ls, lg = stacked(params_, got, cfg_, layers)
+            if lg is not None:
+                branch[key] = lg[:, :, 0].float().clone()
+            return ls, lg
+
+        for i in range(n):
+            if i == 0 and not e.executor.graphs:
+                tiers.branch_logits_stacked = recording
+            ts = time.perf_counter()
+            try:
+                res, st["caches"] = e.step(tok, st["pos"], st["caches"])
+            finally:
+                tiers.branch_logits_stacked = stacked
+            step_s.append(time.perf_counter() - ts)
+            st["pos"] += 1
+            out.append(res)
+            tok = res.tokens_dev[:, None]
+        return out, step_s
+
+    # First step: kernel path (the eager twin) against the plain path.
+    (pe,), _ = decode("plain", 1, tok)
+    kres, eager_s = decode("eager", VLM_STEPS, tok)
+    ke = kres[0]
+    vocab = cfg.vocab_size
+    kl, pl = ke.last_logits[:, :vocab].float(), pe.last_logits[:, :vocab].float()
+    scale, tol = float(pl.abs().max()), bf16_ulps(pl)
+    dlog = float((kl - pl).abs().max())
+    check(dlog <= tol, f"{name} first step: max |d logit| kernel vs plain {dlog:.4g} <= "
+          f"{tol:.4g} (8 bf16 ulps at the logits' scale {scale:.3f})")
+    # The branch heads (all three in the engine's one stack): logits within
+    # 8 bf16 ulps of their scale; entropies within 1e-5 + 2 x each row's
+    # first-order bound, max |d logit| x sum p |log p + H| / log V (from the
+    # plain logits), as the train_branchy twin holds them: at V = 128,256
+    # and logits of scale ~9 a flat 1e-4 is below what the logits' own
+    # difference moves the entropy.
+    bk, bp = branch["eager"], branch["plain"]
+    dz = (bk - bp).abs().amax(dim=-1)  # (K, B)
+    check(float(dz.max()) <= bf16_ulps(bp), f"{name} first step: branch logits kernel "
+          f"vs plain {float(dz.max()):.4g} <= {bf16_ulps(bp):.4g} (8 bf16 ulps of their "
+          "scale)")
+    allowed = 1e-5 + 2 * entropy_slope(torch, bp) * dz.cpu().numpy()
+    straddle = np.zeros(N_REQ, bool)
+    dh, worst_ratio = 0.0, 0.0
+    for j, layer in enumerate(cfg.branch_layers):
+        ek, ep = ke.branch_entropy[layer], pe.branch_entropy[layer]
+        d = np.abs(ek - ep)
+        dh = max(dh, float(d.max()))
+        worst_ratio = max(worst_ratio, float((d / allowed[j]).max()))
+        straddle |= (ek < thr) != (ep < thr)
+    check(worst_ratio <= 1.0, f"{name} first step: branch |dH| kernel vs plain (max "
+          f"{dh:.3g}) within 1e-5 + 2 x each row's first-order bound on every row "
+          f"(worst at {worst_ratio:.3f} of its bound)")
+    check(np.array_equal(ke.exited[~straddle], pe.exited[~straddle]),
+          f"{name} first step: exit masks equal off the threshold's edge (rows at the "
+          f"edge: {straddle.nonzero()[0].tolist()})")
+    tie = top2_gap(pl) <= 2 * dlog
+    stay = ~ke.exited & ~pe.exited & ~straddle
+    check(np.array_equal(ke.tokens[stay & ~tie], pe.tokens[stay & ~tie]),
+          f"{name} first step: main-head tokens equal on rows that stay, away from "
+          f"near-ties (near-tie rows {tie.nonzero()[0].tolist()})")
+    # The graphed engine, counted: 16 steps from the same prompt state.
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gres, graphed_s = decode("graphed", VLM_STEPS, tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    first = None
+    for i, (g, e) in enumerate(zip(gres, kres)):
+        if not (np.array_equal(g.tokens, e.tokens) and np.array_equal(g.exited, e.exited)
+                and all(np.array_equal(g.branch_entropy[l], e.branch_entropy[l])
+                        for l in cfg.branch_layers)
+                and g.last_logits.equal(e.last_logits)) and first is None:
+            first = i
+    check(first is None, f"{name}: graphed engine == eager twin bitwise on all "
+          f"{VLM_STEPS} steps (tokens, exit masks, entropies, logits; first difference "
+          f"at step {first})")
+    check(states["graphed"]["pos"] == want + VLM_STEPS,
+          f"{name}: pos {states['graphed']['pos']} after {VLM_STEPS} steps")
+    check(launches["entropy_exit_argmax_heads"] == VLM_STEPS
+          and launches["entropy_exit_argmax"] == 0
+          and launches["flash_decode"] == VLM_STEPS * cfg.num_layers,
+          f"{name}: the graphed run launched the exit kernel once a step for all three "
+          f"heads and flash_decode in every layer ({ {k: v for k, v in launches.items() if v} })")
+    check(all(bool(torch.isfinite(g.last_logits).all()) for g in gres)
+          and all(0 <= t < vocab for g in gres for t in g.tokens),
+          f"{name}: every step's logits finite, every token inside the vocabulary")
+    step_ms = statistics.median(graphed_s[1:]) * 1e3
+    eager_ms = statistics.median(eager_s[1:]) * 1e3
+    log(f"  {name}: start {start_s:.2f} s for {N_REQ} x {want} positions; decode step "
+        f"{step_ms:.3f} ms graphed / {eager_ms:.3f} ms eager (host clock, median of "
+        f"steps 2-{VLM_STEPS}); {N_REQ * VLM_STEPS / wall:.1f} tokens/s graphed; max "
+        f"|d logit| {dlog:.4g}, |dH| {dh:.3g}")
+    run = dict(label=f"{name} K=1 engine", launches=launches, decode_steps=VLM_STEPS,
+               decode_step_ms=step_ms, eager_decode_step_ms=eager_ms, start_s=start_s,
+               tokens_per_s=N_REQ * VLM_STEPS / wall)
+    del engines, ex, states, params, patches, kres, gres, ke, pe
+    released(torch)
+    return dict(arch="internvl2_76b", runs=[run], pos=want, layers=cfg.num_layers,
+                first_step_max_dlogit=dlog, first_step_dlogit_bound=tol,
+                first_step_max_dh=dh, init_params_gb=nbytes / 1e9,
+                init_params_peak_gb=init_peak / 1e9,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def example_phase() -> dict:
@@ -2838,13 +3314,6 @@ def branchy_twin(torch, dev, ckpt: Path, steps: int) -> dict:
         if not cond:
             raise SystemExit(f"FAILED: {what}")
 
-    def bf16_ulps(x, n=8):
-        return n * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
-
-    def top2_gap(x):
-        top = x.topk(2, dim=-1).values
-        return (top[:, 0] - top[:, 1]).cpu().numpy()
-
     worst = dict(dh_same_input=0.0, dh=0.0, dlog_branch=0.0, dlog_main=0.0)
     counts = dict(exits=0, straddles=0, near_ties=0, compared_tokens=0)
     for t in range(16):
@@ -2879,10 +3348,7 @@ def branchy_twin(torch, dev, ckpt: Path, steps: int) -> dict:
         must(float(dz_b.max()) <= bf16_ulps(lp),
               f"train_branchy twin step {t}: branch logits kernel vs plain path "
               f"{float(dz_b.max()):.4g} <= {bf16_ulps(lp):.4g} (8 bf16 ulps of their scale)")
-        logp = torch.log_softmax(lp, dim=-1)
-        pr = logp.exp()
-        h_nats = -(pr * logp).sum(-1, keepdim=True)
-        slope = ((pr * (logp + h_nats).abs()).sum(-1) / math.log(lp.shape[-1])).cpu().numpy()
+        slope = entropy_slope(torch, lp)
         dh = np.abs(ek - ep)
         must(bool((dh <= 1e-5 + 2 * slope * dz_b).all()),
               f"train_branchy twin step {t}: entropies kernel vs plain path within "
@@ -3106,10 +3572,16 @@ def main() -> int:
     stamp("kernel phases done")
     alexnet = alexnet_phase(torch, dev)
     stamp("alexnet phase done")
-    e2e = []
+    e2e, phase_s = [], {}
     for path in PATHS:
+        t0 = time.perf_counter()
         e2e.append(e2e_phase(torch, dev, path))
-        stamp(f"end to end {path.arch} done")
+        phase_s[path.arch] = time.perf_counter() - t0
+        stamp(f"end to end {path.arch} done in {phase_s[path.arch]:.1f} s")
+    t0 = time.perf_counter()
+    e2e.append(vlm_phase(torch, dev))
+    phase_s["internvl2_76b"] = time.perf_counter() - t0
+    stamp(f"vlm engine internvl2_76b done in {phase_s['internvl2_76b']:.1f} s")
     example = example_phase()
     stamp("serve_partitioned example done")
     training = train_phase(torch, dev, smi)
@@ -3131,7 +3603,8 @@ def main() -> int:
     check(len(SHORT_WINDOWS) <= MAX_SHORT_RUN,
           f"device_ms left out {len(SHORT_WINDOWS)} <= {MAX_SHORT_RUN} profiler windows "
           f"over the run (kernel, events kept, full): {SHORT_WINDOWS}")
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, alexnet=alexnet, paths=e2e, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
+    log(f"phase seconds: {json.dumps(phase_s)}; whole run {time.perf_counter() - t_start:.1f} s")
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, paths=e2e, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -359,7 +359,7 @@ def decode_layer_fns(
     def make_fn(i: int) -> Callable:
         def fn(args):
             h, caches = args
-            h2, _, _ = M.run_trunk(
+            h2, _, _, _ = M.run_trunk(
                 params, h, cfg, positions, caches,
                 layer_range=(i, i + 1), use_kernels=kernels,
             )

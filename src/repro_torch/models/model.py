@@ -1,6 +1,12 @@
-"""BranchyModel for the dense GQA, Mamba2 (``ssm``) and Zamba2 (``hybrid``)
-trunks: backbone + tied side branches, with prefill / decode entry points
-— counterpart of ``repro.models.model``.
+"""BranchyModel for the dense GQA, routed-expert (``moe``: Qwen3-30B-A3B),
+vision-language (``vlm``: InternVL2's language trunk), Mamba2 (``ssm``) and
+Zamba2 (``hybrid``) trunks: backbone + tied side branches, with prefill /
+decode entry points — counterpart of ``repro.models.model``.
+
+A ``vlm`` trunk is the dense GQA stack; its prompts start with
+``num_patches`` precomputed patch embeddings (the vision frontend is a stub
+in the reference too), prepended to the token embeddings in the compute
+dtype.  Training drops the patch positions' logits from every head's loss.
 
 Trunk layers are numbered 1..L like the paper's ``v_i``; side branches sit
 after the layers in ``cfg.branch_layers`` and are collected by
@@ -12,7 +18,8 @@ its own KV cache per site) after every ``attn_every``-th Mamba2 layer
 (:func:`hybrid_sites`).
 
 Params (the reference's pytree layout, as tensors):
-    {"embed": (V, D), "blocks": stacked (L, ...) block params,
+    {"embed": (V, D), "blocks": stacked (L, ...) block params (an MoE
+     block's experts under "moe", see :mod:`repro_torch.models.moe`),
      "final_norm": {"scale": (D,)}, "lm_head": (D, V) (absent when the
      embedding is tied), "branches": {"scale": (n_branches, D)},
      "shared_attn": one GQA block (hybrid)}
@@ -21,7 +28,8 @@ branches' included, are ``{}``.
 
 Training (:func:`forward_train`) is the reference's joint BranchyNet loss:
 the main head's cross-entropy plus ``branch_loss_weight`` times each
-branch's, each head's loss recomputed in the backward pass
+branch's (plus ``router_aux_weight`` times the summed router aux loss of
+the MoE blocks), each head's loss recomputed in the backward pass
 (``torch.utils.checkpoint``) so that no logits are saved.
 Caches (full-batch resident, updated in place):
     {"length": () int32,
@@ -45,6 +53,7 @@ from repro_torch.models.layers import dense, embed, norm_apply, norm_init
 from repro_torch.models.transformer import (
     BlockKind,
     block_apply,
+    cast_tree,
     init_block_cache,
     layer_slice,
     recomputed,
@@ -72,7 +81,7 @@ __all__ = [
 
 _MATMUL_LEAVES = frozenset(
     {"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-     "w_z", "w_xbc", "w_dt", "out_proj"}
+     "w_z", "w_xbc", "w_dt", "out_proj", "router"}
 )
 
 
@@ -82,12 +91,19 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def trunk_layout(cfg: ModelConfig) -> list[tuple[str, BlockKind, int]]:
     """Ordered stacks composing the trunk: (param key, kind, n_layers)."""
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "vlm"):
         return [("blocks", BlockKind("gqa", "dense"), cfg.num_layers)]
+    if cfg.arch_type == "moe":
+        if cfg.use_mla or cfg.first_k_dense:
+            raise NotImplementedError(
+                "the port has no MLA and no first_k_dense stack yet "
+                "(ROADMAP queue 1: DeepSeek-V3)")
+        return [("blocks", BlockKind("gqa", "moe"), cfg.num_layers)]
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("blocks", BlockKind("mamba", "none"), cfg.num_layers)]
     raise NotImplementedError(
-        f"the port runs dense, ssm and hybrid trunks, not {cfg.arch_type!r}")
+        f"the port runs dense, vlm, moe, ssm and hybrid trunks, not "
+        f"{cfg.arch_type!r}")
 
 
 def hybrid_sites(cfg: ModelConfig) -> tuple[int, ...]:
@@ -112,41 +128,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     truncated normals for the projections (the Mamba2 mixer's own
     distributions in :func:`repro_torch.models.mamba.mamba_init`),
     N(0, 0.02^2) for the embedding and LM head, unit norm scales; fp32,
-    or bf16 under ``param_dtype="bfloat16"``."""
+    or bf16 under ``param_dtype="bfloat16"``.
+
+    Under bf16 every leaf lives in bf16, as the reference casts its tree.
+    Each leaf is cast as soon as it is drawn (the MoE experts one layer at
+    a time), so the fp32 transient is one leaf, not a whole stack: the
+    draws, their order and so the values are those of an fp32 draw cast
+    afterwards."""
     layout = trunk_layout(cfg)
     device = resolve_device(device)
     d, v = cfg.d_model, cfg.padded_vocab_size
+    pd = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
     def normal(*shape, std):
-        return torch.randn(shape, generator=generator, device=device).mul_(std)
+        return torch.randn(shape, generator=generator, device=device).mul_(std).to(pd)
 
-    # param_dtype "bfloat16" (Qwen3-8B and the >100B configs): every leaf
-    # lives in bf16, as the reference casts its tree; each part is cast as
-    # it is drawn, so the fp32 draw of one part is the peak.
-    def keep(tree):
-        return (cast_tree(tree, torch.bfloat16) if cfg.param_dtype == "bfloat16"
-                else tree)
+    def norm(lead=()):
+        return cast_tree(norm_init(cfg.norm_type, d, device, lead), pd)
 
-    params = {"embed": keep(normal(v, d, std=0.02))}
+    params = {"embed": normal(v, d, std=0.02)}
     for name, kind, n in layout:
-        params[name] = keep(stack_init(cfg, kind, n, generator, device))
+        params[name] = stack_init(cfg, kind, n, generator, device, pd)
     if cfg.arch_type == "hybrid":
-        params["shared_attn"] = keep(layer_slice(
-            stack_init(cfg, _SHARED_ATTN_KIND, 1, generator, device), 0))
-    params["final_norm"] = keep(norm_init(cfg.norm_type, d, device))
+        params["shared_attn"] = layer_slice(
+            stack_init(cfg, _SHARED_ATTN_KIND, 1, generator, device, pd), 0)
+    params["final_norm"] = norm()
     if not cfg.tie_embeddings:
-        params["lm_head"] = keep(normal(d, v, std=0.02))
+        params["lm_head"] = normal(d, v, std=0.02)
     if cfg.branch_layers:
-        params["branches"] = keep(norm_init(cfg.norm_type, d, device,
-                                            (len(cfg.branch_layers),)))
+        params["branches"] = norm((len(cfg.branch_layers),))
     return params
-
-
-def cast_tree(tree, dtype: torch.dtype):
-    """Every leaf of a params tree (or one tensor) as ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
 
 
 def compute_params(params: dict, dtype=torch.bfloat16) -> dict:
@@ -196,42 +207,49 @@ def run_trunk(
     *,
     layer_range: tuple[int, int] | None = None,  # absolute, 0-based [lo, hi)
     collect: tuple[int, ...] = (),  # 1-based "after layer i" points
+    moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
     remat: bool = False,
-) -> tuple[torch.Tensor, dict | None, dict[int, torch.Tensor]]:
+) -> tuple[torch.Tensor, dict | None, torch.Tensor | float,
+           dict[int, torch.Tensor]]:
     """Run trunk layers [lo, hi), segmenting at the ``collect`` layers and
-    (hybrid) the shared-attention sites.  Returns (h, caches, {layer:
-    hidden}); caches are updated in place.  The shared block runs with the
+    (hybrid) the shared-attention sites.  Returns (h, caches, aux, {layer:
+    hidden}); caches are updated in place; aux is the summed router aux
+    loss of the MoE blocks run (0.0 when none ran).  The shared block runs with the
     layer it follows, so a cut after site s keeps s on the lower tier.
     ``rows``: h is a sub-batch whose stateful reads and writes go to those
     rows of the full-batch caches (decode: a device tensor with
     out-of-bounds sentinels; prefill: a host-side plan).  ``remat``: each
     trunk layer is recomputed in the backward pass (the shared block is
-    not, as in the reference)."""
+    not, as in the reference).  ``moe_dispatch``: the MoE blocks' dispatch
+    mode (:func:`repro_torch.models.moe.moe_apply`)."""
     (name, kind, n), = trunk_layout(cfg)
     lo, hi = layer_range or (0, n)
     sites = hybrid_sites(cfg)
     stops = sorted({hi, *(c for c in (*collect, *sites) if lo < c < hi)})
     collected: dict[int, torch.Tensor] = {}
     layers = unstack(params[name], lo, hi)
+    aux = 0.0
     start = lo
     for stop in stops:
-        h = run_stack(
+        h, a = run_stack(
             layers, h, cfg, kind, positions,
             caches[name] if caches is not None else None,
-            lo=start, hi=stop, rows=rows, use_kernels=use_kernels, remat=remat,
+            lo=start, hi=stop, moe_dispatch=moe_dispatch, rows=rows,
+            use_kernels=use_kernels, remat=remat,
         )
+        aux = aux + a
         if stop in sites:
             site_cache = (layer_slice(caches["shared_attn"], sites.index(stop))
                           if caches is not None else None)
-            h = block_apply(params["shared_attn"], h, cfg, _SHARED_ATTN_KIND,
-                            positions, site_cache, rows=rows,
-                            use_kernels=use_kernels)
+            h, _ = block_apply(params["shared_attn"], h, cfg, _SHARED_ATTN_KIND,
+                               positions, site_cache, rows=rows,
+                               use_kernels=use_kernels)
         if stop in collect:
             collected[stop] = h
         start = stop
-    return h, caches, collected
+    return h, caches, aux, collected
 
 
 # ---------------------------------------------------------------- heads
@@ -295,22 +313,29 @@ def prefill(
     cfg: ModelConfig,
     caches: dict,
     *,
+    patch_embeds: torch.Tensor | None = None,  # (B, num_patches, d): vlm
+    moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Process whole prompts; returns (last-position logits (B, 1, V),
-    caches).  ``rows`` (continuous-batching admission, a host-side plan):
-    prompt row i prefills cache row ``rows[i]`` in place, ending exactly as
-    a fresh solo prefill; sentinel rows (>= B) drop their writes and the
-    step counter is untouched.  ``use_kernels``: the admission scan of a
-    Mamba2 layer runs in the Hopper ``ssd_scan`` kernel."""
-    h = embed(params["embed"], tokens, compute_dtype(cfg))
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    h2, caches, _ = run_trunk(params, h, cfg, positions, caches, rows=rows,
-                              use_kernels=use_kernels)
+    caches).  A ``vlm`` prompt is its ``patch_embeds`` followed by its
+    tokens (the reference's ``inputs["patch_embeds"]``), so its cache
+    holds ``num_patches + S`` positions.  ``rows`` (continuous-batching
+    admission, a host-side plan): prompt row i prefills cache row
+    ``rows[i]`` in place, ending exactly as a fresh solo prefill; sentinel
+    rows (>= B) drop their writes and the step counter is untouched.
+    ``use_kernels``: the admission scan of a Mamba2 layer runs in the
+    Hopper ``ssd_scan`` kernel."""
+    inputs = {"tokens": tokens}
+    if patch_embeds is not None:
+        inputs["patch_embeds"] = patch_embeds
+    h, positions = _embed_inputs(params, inputs, cfg)
+    h2, caches, _, _ = run_trunk(params, h, cfg, positions, caches,
+                                 moe_dispatch=moe_dispatch, rows=rows,
+                                 use_kernels=use_kernels)
     if rows is None:
-        caches["length"].fill_(tokens.shape[1])
+        caches["length"].fill_(h.shape[1])
     hf = norm_apply(cfg.norm_type, params["final_norm"], h2)
     return _unembed(params, hf[:, -1:], cfg), caches
 
@@ -332,6 +357,7 @@ def decode_step(
     *,
     layer_range: tuple[int, int] | None = None,
     with_branches: bool = True,
+    moe_dispatch: str = "einsum",
     use_kernels: bool | None = None,  # None = cfg.use_kernels, then auto
 ) -> dict[str, Any]:
     """One lock-step decode step.  Returns logits (or the hidden stream for
@@ -342,9 +368,9 @@ def decode_step(
     positions = torch.as_tensor(pos, device=token.device).to(torch.int32).reshape(1)
     h = embed_decode(params, token, positions, cfg)
     collect = cfg.branch_layers if with_branches else ()
-    h2, caches, collected = run_trunk(
+    h2, caches, _, collected = run_trunk(
         params, h, cfg, positions, caches, layer_range=layer_range,
-        collect=collect, use_kernels=kernels,
+        collect=collect, moe_dispatch=moe_dispatch, use_kernels=kernels,
     )
     out: dict[str, Any] = {}
     if layer_range is None or layer_range[1] == _total_layers(cfg):
@@ -383,18 +409,29 @@ _NO_FRONTEND = "the port has no {} yet (ROADMAP queue 1: other trunks)"
 
 def _embed_inputs(params: dict, inputs: dict,
                   cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """(h (B, S, d), positions (S,)) of a text batch."""
-    if cfg.frontend != "none" or cfg.arch_type == "audio":
+    """(h (B, S, d), positions (S,)): the token embeddings, after the
+    precomputed ``patch_embeds`` (B, num_patches, d) under the vision
+    frontend (cast to the compute dtype, as the reference does)."""
+    if cfg.frontend not in ("none", "vision") or cfg.arch_type == "audio":
         raise NotImplementedError(_NO_FRONTEND.format(f"{cfg.frontend!r} frontend"))
-    h = embed(params["embed"], inputs["tokens"], compute_dtype(cfg))
+    dtype = compute_dtype(cfg)
+    h = embed(params["embed"], inputs["tokens"], dtype)
+    if cfg.frontend == "vision":
+        if "patch_embeds" not in inputs:
+            raise ValueError("a vision-frontend prompt needs its patch_embeds")
+        h = torch.cat([inputs["patch_embeds"].to(dtype), h], dim=1)
     return h, torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
 
-def forward_train(params: dict, batch: dict, cfg: ModelConfig) -> dict[str, Any]:
+def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
+                  moe_dispatch: str = "einsum") -> dict[str, Any]:
     """The joint BranchyNet training loss (paper Sec. III, BranchyNet [5]):
-    main CE + ``branch_loss_weight`` x sum_k CE_k (+ the MoE aux loss,
-    zero: the port has no MoE trunk).  ``batch``: ``tokens`` and
-    ``labels`` (B, S), optional ``mask``; token t predicts label t + 1.
+    main CE + ``branch_loss_weight`` x sum_k CE_k + ``router_aux_weight``
+    x the summed router aux loss of the MoE blocks (zero for a trunk
+    without experts).  ``batch``: ``tokens`` and ``labels`` (B, S),
+    optional ``mask``, and ``patch_embeds`` under the vision frontend,
+    whose positions' logits every head drops; token t predicts label
+    t + 1.
 
     Each head's loss runs under ``recomputed``: otherwise the (B, S, V)
     logits of every head would be saved for the backward pass in fp32.
@@ -404,15 +441,18 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig) -> dict[str, Any]
     if cfg.use_mtp:
         raise NotImplementedError(_NO_FRONTEND.format("multi-token prediction"))
     h, positions = _embed_inputs(params, batch, cfg)
-    h2, _, collected = run_trunk(params, h, cfg, positions,
-                                 collect=cfg.branch_layers, remat=cfg.remat)
+    h2, _, aux, collected = run_trunk(params, h, cfg, positions,
+                                      collect=cfg.branch_layers,
+                                      moe_dispatch=moe_dispatch, remat=cfg.remat)
     labels = batch["labels"][:, 1:]
     mask = batch.get("mask")
     mask = None if mask is None else mask[:, 1:]
+    n_patch = cfg.num_patches if cfg.frontend == "vision" else 0
 
     def head_loss(h):
         hn = norm_apply(cfg.norm_type, params["final_norm"], h)
-        return softmax_xent(_unembed(params, hn, cfg)[:, :-1], labels, mask)
+        logits = _unembed(params, hn, cfg)[:, n_patch:]
+        return softmax_xent(logits[:, :-1], labels, mask)
 
     main_loss = recomputed(head_loss, h2)
     branch_losses: dict[str, torch.Tensor] = {}
@@ -422,12 +462,13 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig) -> dict[str, Any]
 
         def branch_loss(hs):
             logits = _unembed(params, _stacked_branch_norm(params, hs, idx, cfg), cfg)
-            return torch.stack([softmax_xent(lg[:, :-1], labels, mask) for lg in logits])
+            return torch.stack([softmax_xent(lg[:, n_patch:][:, :-1], labels, mask)
+                                for lg in logits])
 
         bl = recomputed(branch_loss, torch.stack([collected[l] for l in present]))
         for k, layer in enumerate(present):
             branch_losses[f"branch_{layer}"] = bl[k]
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     loss = main_loss + cfg.branch_loss_weight * sum(branch_losses.values())
     loss = loss + cfg.router_aux_weight * aux
     return {"loss": loss, "main_loss": main_loss, "aux_loss": aux,

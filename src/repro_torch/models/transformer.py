@@ -1,7 +1,8 @@
 """Block assembly and layer-stack execution — counterpart of
 ``repro.models.transformer`` for ``BlockKind("gqa", "dense")`` (the dense
-trunk and Zamba2's shared attention block) and ``BlockKind("mamba",
-"none")`` (the Mamba2 trunk).
+and vlm trunks and Zamba2's shared attention block), ``BlockKind("gqa",
+"moe")`` (the routed-expert trunk of Qwen3-30B-A3B) and
+``BlockKind("mamba", "none")`` (the Mamba2 trunk).
 
 Parameters keep the reference's stacked layout: every leaf of a stack
 carries a leading ``(n_layers,)`` axis.  A Python loop over the layers
@@ -22,11 +23,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp_apply, norm_apply, norm_init, truncated_normal_
 
 __all__ = [
     "BlockKind",
     "block_apply",
+    "cast_tree",
     "init_block_cache",
     "layer_slice",
     "run_stack",
@@ -35,13 +38,13 @@ __all__ = [
     "unstack",
 ]
 
-_PORTED = {("gqa", "dense"), ("mamba", "none")}
+_PORTED = {("gqa", "dense"), ("gqa", "moe"), ("mamba", "none")}
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockKind:
     mixer: str  # "gqa" | "mamba"
-    mlp: str  # "dense" | "none"
+    mlp: str  # "dense" | "moe" | "none"
     use_rope: bool = True
 
 
@@ -81,22 +84,33 @@ def recomputed(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def cast_tree(tree, dtype: torch.dtype):
+    """Every leaf of a params tree (or one tensor) as ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
-               generator: torch.Generator, device) -> dict:
-    """Random fp32 params of ``n_layers`` blocks, stacked: fan-in scaled
-    truncated normals for the projections, unit norm scales."""
+               generator: torch.Generator, device,
+               dtype: torch.dtype = torch.float32) -> dict:
+    """Random params of ``n_layers`` blocks, stacked, in ``dtype``:
+    fan-in scaled truncated normals for the projections, unit norm scales.
+    Each leaf is drawn in fp32 and cast as soon as it is drawn, so the
+    draw of one leaf is the fp32 transient (the MoE experts: one layer's
+    leaf, :func:`repro_torch.models.moe.moe_init`)."""
     _check(kind)
     d, ff, n = cfg.d_model, cfg.d_ff, n_layers
 
     def proj(d_in, d_out):
         t = torch.empty((n, d_in, d_out), device=device)
-        return truncated_normal_(t, generator, d_in ** -0.5)
+        return truncated_normal_(t, generator, d_in ** -0.5).to(dtype)
 
     def ones(*shape):
-        return torch.ones((n, *shape), device=device)
+        return torch.ones((n, *shape), dtype=dtype, device=device)
 
     def norm():
-        return norm_init(cfg.norm_type, d, device, (n,))
+        return cast_tree(norm_init(cfg.norm_type, d, device, (n,)), dtype)
 
     p: dict = {"norm1": norm()}
     if kind.mixer == "gqa":
@@ -110,7 +124,7 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
             p["attn"]["q_norm"] = {"scale": ones(cfg.head_dim)}
             p["attn"]["k_norm"] = {"scale": ones(cfg.head_dim)}
     else:
-        p["mamba"] = mamba_mod.mamba_init(cfg, n, generator, device)
+        p["mamba"] = cast_tree(mamba_mod.mamba_init(cfg, n, generator, device), dtype)
     if kind.mlp == "dense":
         p["norm2"] = norm()
         p["mlp"] = {
@@ -118,6 +132,9 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
             "w_up": proj(d, ff),
             "w_down": proj(ff, d),
         }
+    elif kind.mlp == "moe":
+        p["norm2"] = norm()
+        p["moe"] = moe_mod.moe_init(cfg, n, generator, device, dtype)
     return p
 
 
@@ -140,12 +157,14 @@ def block_apply(
     positions: torch.Tensor,
     cache: dict | None = None,
     *,
+    moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One pre-norm residual block: the mixer (attention or Mamba2), then
-    the MLP if the block has one.  ``cache`` (this layer's view) is updated
-    in place."""
+    the MLP (dense or routed experts) if the block has one.  ``cache``
+    (this layer's view) is updated in place.  Returns (h, the router's aux
+    loss; None for a block without experts)."""
     _check(kind)
     hn = norm_apply(cfg.norm_type, params["norm1"], h)
     kernels = use_kernels and cache is not None
@@ -160,10 +179,15 @@ def block_apply(
             rows=rows if cache else None, use_kernels=kernels,
         )
     h = h + y
+    aux = None
     if kind.mlp == "dense":
         hn = norm_apply(cfg.norm_type, params["norm2"], h)
         h = h + mlp_apply(params["mlp"], hn, cfg.mlp_type)
-    return h
+    elif kind.mlp == "moe":
+        hn = norm_apply(cfg.norm_type, params["norm2"], h)
+        y, aux = moe_mod.moe_apply(params["moe"], hn, cfg, dispatch=moe_dispatch)
+        h = h + y
+    return h, aux
 
 
 def run_stack(
@@ -176,21 +200,30 @@ def run_stack(
     *,
     lo: int,
     hi: int,
+    moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
     remat: bool = False,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Run layers ``[lo, hi)`` of a stack (``layers``: :func:`unstack` of
     its params, holding at least those layers) over the residual stream;
-    stacked ``caches`` are updated in place.  ``remat`` (cache-free, gradients on) recomputes each block in
-    the backward pass instead of saving its activations."""
+    stacked ``caches`` are updated in place.  ``remat`` (cache-free,
+    gradients on) recomputes each block in the backward pass instead of
+    saving its activations.  Returns (h, the summed router aux loss of the
+    MoE blocks; 0.0 when the stack has none)."""
+    aux = 0.0
     for i in range(lo, hi):
         if remat and caches is None:
-            h = recomputed(block_apply, layers[i], h, cfg, kind, positions)
-            continue
-        h = block_apply(
-            layers[i], h, cfg, kind, positions,
-            layer_slice(caches, i) if caches is not None else None,
-            rows=rows, use_kernels=use_kernels,
-        )
-    return h
+            h, a = recomputed(
+                lambda p, x: block_apply(p, x, cfg, kind, positions,
+                                         moe_dispatch=moe_dispatch),
+                layers[i], h)
+        else:
+            h, a = block_apply(
+                layers[i], h, cfg, kind, positions,
+                layer_slice(caches, i) if caches is not None else None,
+                moe_dispatch=moe_dispatch, rows=rows, use_kernels=use_kernels,
+            )
+        if a is not None:
+            aux = aux + a
+    return h, aux

@@ -92,13 +92,20 @@ class ServingEngine(ServesRequests):
         return self._exec.step(tok, pos, caches, active=active)
 
     def start(self, inputs: dict) -> dict:
-        """Prefill a batch of prompts (``inputs["tokens"]``, (B, S));
-        returns mutable serve state."""
+        """Prefill a batch of prompts (``inputs["tokens"]``, (B, S); under
+        the vision frontend also ``inputs["patch_embeds"]``, (B,
+        num_patches, d), which come first); returns mutable serve state,
+        whose ``pos`` counts the patches too."""
         tokens = self._exec._upload(inputs["tokens"], torch.int64)
         batch, prompt_len = tokens.shape
+        patches = None
+        if self.cfg.frontend == "vision":
+            prompt_len += self.cfg.num_patches
+            patches = torch.as_tensor(inputs["patch_embeds"], device=self.device)
         caches = init_caches(self.cfg, batch, self.context_len,
                              device=self.device)
         logits, caches = prefill(self.params, tokens, self.cfg, caches,
+                                 patch_embeds=patches,
                                  use_kernels=self._exec.use_kernels)
         return {
             "caches": caches,

@@ -632,7 +632,7 @@ class TierExecutor:
             # writes drop, so KV validity is a pure function of exits.
             rows_rw = torch.where(ex, batch, rows)
         h = embed_decode(params, xb, positions, cfg) if seg.layer_lo == 0 else xb
-        h, caches, collected = run_trunk(
+        h, caches, _, collected = run_trunk(
             params, h, cfg, positions, caches,
             layer_range=(seg.layer_lo, seg.layer_hi), collect=eval_layers,
             rows=rows_rw, use_kernels=self.use_kernels,

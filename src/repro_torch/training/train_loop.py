@@ -31,22 +31,26 @@ def init_train_state(params: dict, opt: Optimizer) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _value_and_grad(params: dict, batch: dict, cfg: ModelConfig):
+def _value_and_grad(params: dict, batch: dict, cfg: ModelConfig,
+                    moe_dispatch: str = "einsum"):
     """(forward_train's outputs, the loss's gradient tree)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
-    out = forward_train(tree_map(lambda _: next(it), params), batch, cfg)
+    out = forward_train(tree_map(lambda _: next(it), params), batch, cfg,
+                        moe_dispatch=moe_dispatch)
     grads = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
     it = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
     return out, tree_map(lambda _: next(it), params)
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
+                    moe_dispatch: str = "einsum",
                     accum: int | None = None) -> Callable[[dict, dict], tuple[dict, dict]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` leaves have a leading global-batch axis; ``accum`` (default
     ``cfg.grad_accum``) cuts it into that many equal microbatches.
+    ``moe_dispatch``: the MoE blocks' dispatch mode in ``forward_train``.
     Metrics: ``loss``, ``grad_norm`` (before clipping) and, when ``accum
     == 1``, ``main_loss`` and ``aux_loss``."""
     accum = max(accum if accum is not None else cfg.grad_accum, 1)
@@ -55,7 +59,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         if accum == 1:
-            out, grads = _value_and_grad(params, batch, cfg)
+            out, grads = _value_and_grad(params, batch, cfg, moe_dispatch)
             loss = out["loss"]
         else:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
@@ -64,7 +68,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
             for i in range(accum):
                 micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
                          for k, v in batch.items()}
-                out, g = _value_and_grad(params, micro, cfg)
+                out, g = _value_and_grad(params, micro, cfg, moe_dispatch)
                 tree_map(lambda a, b: a.add_(b.to(acc_dtype)), grads, g)
                 loss = loss + out["loss"].detach()
                 del out, g
@@ -75,7 +79,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *,
             metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
         if accum == 1:
             metrics["main_loss"] = out["main_loss"].detach()
-            metrics["aux_loss"] = out["aux_loss"]
+            metrics["aux_loss"] = out["aux_loss"].detach()
         return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
 
     return train_step

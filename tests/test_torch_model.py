@@ -154,9 +154,9 @@ class TestDecode:
         jh, jc, _, jcol = JM.run_trunk(jp, jnp.asarray(h), jcfg, jpos, jc,
                                       layer_range=(1, 4), collect=(3,),
                                       rows=jnp.asarray(rows))
-        th, tc, tcol = TM.run_trunk(tp, torch.from_numpy(h), tcfg, tpos, tc,
-                                    layer_range=(1, 4), collect=(3,),
-                                    rows=torch.from_numpy(rows).long())
+        th, tc, _, tcol = TM.run_trunk(tp, torch.from_numpy(h), tcfg, tpos, tc,
+                                       layer_range=(1, 4), collect=(3,),
+                                       rows=torch.from_numpy(rows).long())
         np.testing.assert_allclose(th.numpy()[:2], np.asarray(jh)[:2], **FP32_TOL)
         np.testing.assert_allclose(tcol[3].numpy()[:2], np.asarray(jcol[3])[:2], **FP32_TOL)
         _assert_caches(jc, tc, FP32_TOL)
