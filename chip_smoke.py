@@ -41,7 +41,13 @@ exit) if any phase fails:
      (K = 3), flash_decode at Phi-3-medium's Kh = 10, G = 4,
      Qwen3-30B-A3B's Kh = 4, G = 8 and InternVL2's Kh = 8, G = 8 (D = 128),
      each bitwise per head and per row, with device time and bound (and
-     SDPA's GQA time);
+     SDPA's GQA time); flash_decode's two routes (the grouped route: G in
+     {4, 8}, D % 16 == 0, aligned K/V; the split route: every other
+     layout) logged per case, and two grouped cases with many valid
+     slots: "G=8 full cache" (B = 1, Kh = 4, G = 8, D = 128, all 4096
+     slots valid) and "G=4 wide" (B = 8, Kh = 8, G = 4, D = 128, q_pos in
+     [C/2, C), 10% holes), each held at one bf16 ulp, row by row against
+     the row alone, and timed beside SDPA;
   4. end to end — four paths, each a ``PartitionedServer`` at full
      published width and depth with random weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
@@ -765,7 +771,7 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_decode import flash_decode_cuda, split_plan
+    from repro_torch.kernels.flash_decode import call_plan, flash_decode_cuda, split_plan
 
     def compare(label, args, window):
         q, k, v, k_pos, q_pos, rows = args
@@ -780,24 +786,49 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
               f"(max err {float(err.max()):.3g})")
         return float(err.max())
 
-    def sdpa_ms(q, k, v, k_pos, q_pos, rows):
+    def sdpa_inputs(q, k, v, k_pos, q_pos, rows):
+        """SDPA's operands: the rows gathered (outside the timed call) and
+        the validity mask."""
+        r = rows.long().clamp(max=k.shape[0] - 1)
+        kp = k_pos[r]
+        mask = ((kp >= 0) & (kp <= q_pos[:, None].long()))[:, None, None, :]
+        return (q[:, :, None, :], k[r].permute(0, 2, 1, 3), v[r].permute(0, 2, 1, 3),
+                mask, q.shape[1] != k.shape[2])
+
+    def sdpa(qs, kg, vg, mask, gqa):
         """Library yardstick, never called by the port: SDPA on gathered
         rows with the validity mask (its GQA mode where query heads share
         KV heads)."""
-        r = rows.long().clamp(max=k.shape[0] - 1)
-        kg = k[r].permute(0, 2, 1, 3)  # (B, Kh, C, D)
-        vg = v[r].permute(0, 2, 1, 3)
-        kp = k_pos[r]
-        mask = ((kp >= 0) & (kp <= q_pos[:, None].long()))[:, None, None, :]
-        qs = q[:, :, None, :]
-        gqa = q.shape[1] != k.shape[2]
-        ms, _, _ = device_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, enable_gqa=gqa))
+        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask, enable_gqa=gqa)
+
+    def sdpa_ms(*args):
+        """SDPA's device time on one input set, over and over (its operands
+        stay in L2 where they fit)."""
+        inputs = sdpa_inputs(*args)
+        ms, _, _ = device_ms(lambda: sdpa(*inputs))
         return ms
 
     split, splits = split_plan(CONTEXT)
-    log(f"flash_decode: C split into {splits} splits of {split} slots "
-        "(the plan depends on C only)")
+    gsplit, gsplits = split_plan(CONTEXT, 8, 128)
+    log(f"flash_decode: C split into {splits} splits of {split} slots on the split "
+        f"route, {gsplits} of {gsplit} on the grouped route (G in {{4, 8}}, D % 16 == "
+        "0, K/V 16-byte aligned); each plan depends on (C, G, D) and alignment only")
+
+    def routed(label, args):
+        """Log and return the route and split one call takes."""
+        rt, sp, n = call_plan(*args[:3])
+        log(f"flash_decode {label}: {rt} route, {n} splits of {sp} slots")
+        return rt, sp
+
+    def rows_alone(label, args):
+        """Each row of the batch bitwise equal to the same row alone."""
+        q, k, v, k_pos, q_pos, rows = args
+        whole = flash_decode_cuda(q, k, v, k_pos, q_pos, rows)
+        alone = torch.cat([flash_decode_cuda(q[i:i + 1], k, v, k_pos, q_pos[i:i + 1],
+                                             rows[i:i + 1]) for i in range(q.shape[0])])
+        torch.cuda.synchronize()
+        check(bool(torch.equal(whole, alone)), f"flash_decode {label}: every row of the "
+              f"batch of {q.shape[0]} bitwise equal to the row alone")
     b, bc, c, kh, d = 8, 8, 4096, 32, 96
     # The serving shape: ~136 valid slots per row, four input sets (1.6 GB
     # of cache, 54 MB of valid K/V) in turn, so each call finds them cold.
@@ -865,13 +896,39 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
             f"D=128 bf16, q_pos {qqp.tolist()}, one sentinel row")
         err = max(err, compare(f"{label} serving layout (Kh={lkh}, G={lg_}, D=128)",
                                sets[0], 0))
-        whole = flash_decode_cuda(qq, qk, qv, qkp, qqp, qrows)
-        alone = torch.cat([flash_decode_cuda(qq[i:i + 1], qk, qv, qkp, qqp[i:i + 1],
-                                             qrows[i:i + 1]) for i in range(b)])
-        torch.cuda.synchronize()
-        check(bool(torch.equal(whole, alone)), f"flash_decode {label} layout: every row "
-              "of the batch of 8 bitwise equal to the row alone")
-        layouts[key] = (label, sets)
+        rows_alone(f"{label} layout", sets[0])
+        layouts[key] = (label, sets, routed(f"{label} layout", sets[0]))
+
+    # Two grouped cases with many valid slots, each from a generator of its
+    # own: "G=8 full cache", B = 1 over all 4096 slots at Qwen3-30B-A3B's
+    # Kh = 4, G = 8 (eight one-row caches in turn, 67 MB, so each call finds
+    # its 8.4 MB cold), and "G=4 wide", the phase shape's q_pos in [C/2, C)
+    # with 10% holes at Kh = 8, G = 4 (two input sets in turn).
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    full_sets = []
+    for _ in range(8):
+        fq, fk, fv, _, _, _ = flash_case(torch, dev, fgen, 1, 1, c, 4, 8, 128, 0,
+                                         sentinel=False)
+        full_sets.append((fq, fk, fv, torch.arange(c, dtype=torch.int32, device=dev)
+                          .expand(1, c).contiguous(),
+                          torch.tensor([c - 1], dtype=torch.int32, device=dev),
+                          torch.zeros(1, dtype=torch.int32, device=dev)))
+    err = max(err, compare("G=8 full cache (B=1, Kh=4, G=8, D=128, all 4096 slots valid)",
+                           full_sets[0], 0))
+    # Row independence at this layout: four rows over one shared 4-row cache.
+    fq, fk, fv, _, _, _ = flash_case(torch, dev, fgen, 4, 4, c, 4, 8, 128, 0,
+                                     sentinel=False)
+    rows_alone("G=8 full cache layout", (
+        fq, fk, fv, torch.arange(c, dtype=torch.int32, device=dev).expand(4, c).contiguous(),
+        torch.tensor([c - 1, c - 2, c // 2, 1000], dtype=torch.int32, device=dev),
+        torch.arange(4, dtype=torch.int32, device=dev)))
+    wgen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    wide_sets = [flash_case(torch, dev, wgen, b, bc, c, 8, 4, 128, 0) for _ in range(2)]
+    err = max(err, compare("G=4 wide (B=8, Kh=8, G=4, D=128, q_pos in [C/2, C), 10% holes)",
+                           wide_sets[0], 0))
+    rows_alone("G=4 wide", wide_sets[0])
+    layouts["g8_full"] = ("G=8 full cache", full_sets, routed("G=8 full cache", full_sets[0]))
+    layouts["g4_wide"] = ("G=4 wide", wide_sets, routed("G=4 wide", wide_sets[0]))
 
     def timed(args_sets, label):
         ms, _, _ = device_ms(rotating(flash_decode_cuda, args_sets), "flash_decode")
@@ -886,30 +943,41 @@ def flash_kernel_phase(torch, dev, gen) -> list[dict]:
     d64_ms, _ = timed([z], "D=64 (Zamba2)")
     b1_ms, b1_bound = timed([one], "B=1 full cache")
     per_layout = {}
-    for key, (label, sets) in layouts.items():
-        lms, lbound = timed(sets, f"{label} serving layout")
-        lib_ms = sdpa_ms(*sets[0])
-        log(f"  SDPA (GQA) on gathered rows at the {label} layout: {lib_ms:.4f} ms")
+    for key, (label, sets, (rt, sp)) in layouts.items():
+        lms, lbound = timed(sets, f"{label} ({rt} route)")
         q, k, v, k_pos, q_pos, rows = sets[0]
         per_layout.update({f"{key}_ms": lms, f"{key}_bound_ms": lbound,
-                           f"{key}_library_ms": lib_ms,
-                           f"{key}_valid_slots": valid_slots(k_pos, q_pos, rows)})
-    lib = sdpa_ms(*serve_sets[0])
-    phase_lib = sdpa_ms(*main)
+                           f"{key}_valid_slots": valid_slots(k_pos, q_pos, rows),
+                           f"{key}_route": rt, f"{key}_split": sp})
     valid = valid_slots(skp, sqp, srows)
-    log(f"  SDPA on gathered rows: {lib:.4f} ms at the serving shape, "
-        f"{phase_lib:.4f} ms at the phase shape")
-    return [kernel_row(
+    row = kernel_row(
         "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:99", err,
         rotating(flash_decode_cuda, serve_sets), "flash_decode",
         lambda: ref.flash_decode_ref(sq, sk, sv, skp, sqp, srows),
         nbytes=attn_bytes(sq, skp, valid, kh, d), flops=4 * valid * kh * d,
-        library_ms=lib,
         shape=f"serving: B=Bc={b} C={c} Kh={kh} D={d}, {valid} valid slots",
-        phase_shape_ms=phase_ms, phase_shape_bound_ms=phase_bound,
-        phase_shape_library_ms=phase_lib, d64_ms=d64_ms, b1_full_ms=b1_ms,
-        b1_full_bound_ms=b1_bound, **per_layout)]
+        phase_shape_ms=phase_ms, phase_shape_bound_ms=phase_bound, d64_ms=d64_ms,
+        b1_full_ms=b1_ms, b1_full_bound_ms=b1_bound,
+        kernel_route=routed("serving shape", serve_sets[0])[0], split=split,
+        **per_layout)
+    # The library yardsticks, after every kernel time: SDPA on one input
+    # set (in L2 where it fits) and, at the GQA layouts, like for like on
+    # the kernel's own input sets in turn.
+    row["library_ms"] = sdpa_ms(*serve_sets[0])
+    row["phase_shape_library_ms"] = sdpa_ms(*main)
+    row["b1_full_library_ms"] = sdpa_ms(*one)
+    log(f"  SDPA on gathered rows: {row['library_ms']:.4f} ms at the serving shape, "
+        f"{row['phase_shape_library_ms']:.4f} ms at the phase shape, "
+        f"{row['b1_full_library_ms']:.4f} ms at B=1 over the full cache")
+    for key, (label, sets, _) in layouts.items():
+        lib_ms = sdpa_ms(*sets[0])
+        lib_cold, _, _ = device_ms(rotating(sdpa, [sdpa_inputs(*a) for a in sets]))
+        row.update({f"{key}_library_ms": lib_ms, f"{key}_library_cold_ms": lib_cold})
+        log(f"  SDPA (GQA) on gathered rows at the {label} layout: {lib_ms:.4f} ms on "
+            f"one input set, {lib_cold:.4f} ms on the kernel's {len(sets)} in turn "
+            f"(kernel {row[f'{key}_ms'] / lib_cold:.2f}x of that)")
+    return [row]
 
 
 def ssd_inputs(torch, dev, gen, b, l, h, p, n, g, dtype=None, pad=0):
@@ -1276,7 +1344,9 @@ def swap_phase(torch, srv, other: int) -> list[dict]:
 #: The device kernels each wrapper's launch runs (flash_decode: its split
 #: and merge kernels; the three exit wrappers share one kernel).
 LAUNCH_EVENTS = {
-    "flash_decode": ("flash_decode_split_kernel", "flash_decode_merge_kernel"),
+    # flash_decode's two routes: (split, merge) or (grouped, grouped merge)
+    "flash_decode": (("flash_decode_split_kernel", "flash_decode_gqa_kernel"),
+                     ("flash_decode_merge_kernel", "flash_decode_gqa_merge_kernel")),
     "ssd_update": ("ssd_update_kernel",),
     "ssd_scan": ("ssd_scan_kernel",),
     ("entropy_exit_argmax_heads", "entropy_exit_argmax", "entropy_exit"):
@@ -1320,7 +1390,9 @@ def profile_decode(torch, srv, label: str, steps: int = 3) -> dict:
         for names, kernels in LAUNCH_EVENTS.items():
             names = (names,) if isinstance(names, str) else names
             n = sum(ops.launches[k] - before[k] for k in names)
-            got = [sum(c for nm, c in n_events.items() if kern in nm) for kern in kernels]
+            got = [sum(c for nm, c in n_events.items()
+                       if any(k in nm for k in ((kern,) if isinstance(kern, str) else kern)))
+                   for kern in kernels]
             counted[names[0]] = (n, got)
         replays = sum(srv.executor.replays.values()) - replays
         whole = all(g == n for n, got in counted.values() for g in got)

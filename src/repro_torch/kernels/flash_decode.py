@@ -2,13 +2,18 @@
 
 Replaces ``repro/kernels/flash_decode.py::flash_decode_pallas``.  The
 kernel is ``csrc/flash_decode.cu`` (CUDA C++, sm_90a, plain C interface;
-written in CUDA rather than Triton because D = 96 is not a power of two);
-its source note says what bounds it on the H100 and how the design answers
-that.  The kernel splits the cache's C slots into :func:`split_plan`'s
-fixed splits, one block per (query row, kv head, split), reads only the
-valid slots of each, and merges the splits' fp32 partials in split order
-in a second kernel launched by the same C call; this module allocates the
-partials' workspace.  The plain PyTorch version is
+written in CUDA rather than Triton because D = 96 is not a power of two
+and the grouped route issues ``mma.sync`` itself); its source note says
+what bounds it on the H100 and how the design answers that.  One C call
+takes one of two routes, chosen by :func:`route` from the head layout and
+K/V's alignment alone: the grouped route (G in {4, 8}, D a multiple of 16,
+K/V 16-byte aligned: the G query heads of a kv head scored as one
+tensor-core tile) or the split route (every other layout).  Each splits
+the cache's C slots into :func:`split_plan`'s fixed splits, one block per
+(query row, kv head, split), reads only the valid slots of each, and
+merges the splits' fp32 partials in split order in a second kernel
+launched by the same C call; this module allocates the partials'
+workspace.  The plain PyTorch version is
 :func:`repro_torch.kernels.ref.flash_decode_ref`;
 :mod:`repro_torch.kernels.ops` dispatches between the two by the device
 of the query and counts launches.
@@ -23,19 +28,39 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["SPLIT", "flash_decode_cuda", "split_plan"]
+__all__ = ["GQA_SPLIT", "SPLIT", "call_plan", "flash_decode_cuda", "route",
+           "split_plan"]
 
 _GROUPS = (1, 2, 4, 8)
-#: Cache slots per split (``kSplit`` in ``csrc/flash_decode.cu``).
+#: Cache slots per split of the split route (``kSplit`` in
+#: ``csrc/flash_decode.cu``) and of the grouped route (``kGqaSplit``).
 SPLIT = 512
+GQA_SPLIT = 256
 _lib = None
 
 
-def split_plan(c: int) -> tuple[int, int]:
-    """(slots per split, number of splits) for a cache of ``c`` slots.  It
-    depends on ``c`` only — never on the batch, the row map or the data —
+def route(g: int, d: int, aligned: bool = True) -> str:
+    """The kernel route of a head layout: ``"grouped"`` for G in {4, 8}, D
+    a multiple of 16 and 16-byte aligned K/V, else ``"split"``."""
+    return "grouped" if g in (4, 8) and d % 16 == 0 and aligned else "split"
+
+
+def split_plan(c: int, g: int = 1, d: int | None = None,
+               aligned: bool = True) -> tuple[int, int]:
+    """(slots per split, number of splits) for a cache of ``c`` slots on
+    the route of ``(g, d, aligned)`` (``d=None``: the split route).  It
+    depends on those only — never on the batch, the row map or the data —
     so each row's output is a function of that row's inputs alone."""
-    return SPLIT, -(-c // SPLIT)
+    split = SPLIT if d is None or route(g, d, aligned) == "split" else GQA_SPLIT
+    return split, -(-c // split)
+
+
+def call_plan(q, k, v) -> tuple[str, int, int]:
+    """(route, slots per split, splits) of one call: from q's and k's
+    shapes and K/V's 16-byte alignment only."""
+    d, g = q.shape[-1], q.shape[1] // k.shape[2]
+    aligned = (k.data_ptr() | v.data_ptr()) % 16 == 0
+    return (route(g, d, aligned), *split_plan(k.shape[1], g, d, aligned))
 
 
 def _fn():
@@ -86,7 +111,7 @@ def flash_decode_cuda(q, k, v, k_pos, q_pos, rows=None, *, window: int = 0):
     rw = (torch.arange(b, dtype=torch.int32, device=q.device) if rows is None
           else _int_vec(rows, b, q.device, "rows"))
     out = torch.empty_like(q)
-    _, splits = split_plan(c)
+    _, _, splits = call_plan(q, k, v)
     # Per (row, kv head, split, query head): acc (D floats), then (m, l).
     ws = torch.empty(b * kh * splits * h // kh * (d + 2), dtype=torch.float32,
                      device=q.device)

@@ -63,6 +63,17 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     assert not top & {"jax", "jaxlib", "repro"}, top
 
 
+def test_flash_decode_ab_imports_no_jax_and_no_reference():
+    """The A/B timing script runs on the card beside chip_smoke.py."""
+    tree = ast.parse((ROOT / "experiments" / "flash_decode_ab.py").read_text())
+    top = {a.name.split(".")[0] for node in ast.walk(tree) if isinstance(node, ast.Import)
+           for a in node.names}
+    top |= {(node.module or "").split(".")[0] for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom)}
+    assert {"repro_torch", "chip_smoke"} <= top
+    assert not top & {"jax", "jaxlib", "repro"}, top
+
+
 def test_port_holds_no_tpu_rates():
     """TPU v5e's bf16 peak (197e12) and HBM rate (819e9), and the TPU
     fleet's DCN (12.5e9) and ICI (50e9) rates, appear nowhere in the port

@@ -35,7 +35,13 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.entropy_exit import SPLITS
 from repro_torch.kernels.entropy_exit import split_plan as exit_split_plan
-from repro_torch.kernels.flash_decode import SPLIT, split_plan
+from repro_torch.kernels.flash_decode import (
+    GQA_SPLIT,
+    SPLIT,
+    call_plan,
+    route,
+    split_plan,
+)
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 
@@ -467,3 +473,214 @@ class TestFlashDecodeSplit:
         got = _split_merge(tq, tk, tv, torch.from_numpy(kp), torch.from_numpy(qp),
                            torch.from_numpy(rows), window).bfloat16().float().numpy()
         assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-5)
+
+
+# ------------------------------------------- the grouped route (G = 4, 8)
+GQA_WARPS, GQA_TILE = 4, 16  # kGqaWarps, kTile in csrc/flash_decode.cu
+
+
+def _split3(p):
+    """An fp32 weight as the kernel's three bf16 terms hi, mid, lo, each the
+    bf16 of what the ones before left (p = hi + mid + lo to 2^-27 of p)."""
+    hi = p.bfloat16().float()
+    r = p - hi
+    mid = r.bfloat16().float()
+    return hi, mid, (r - mid).bfloat16().float()
+
+
+def _merge(parts):
+    """(m, l, acc) partials merged in order; an empty one (l = 0) adds
+    nothing.  None when every partial is empty."""
+    live = [pt for pt in parts if pt is not None]
+    if not live:
+        return None
+    mm = torch.stack([m for m, _, _ in live]).amax(0)
+    den = torch.zeros_like(live[0][1])
+    num = torch.zeros_like(live[0][2])
+    for m, l, acc in live:
+        f = torch.exp(m - mm)
+        den = den + l * f
+        num = num + acc * f[..., None]
+    return mm, den, num
+
+
+def _grouped_tiles(q, k, v, k_pos, q_pos, rows, window=0):
+    """Test-side emulation of the grouped route, in fp32, from the
+    launcher's own plan: the cache's C slots in the route's fixed splits;
+    in each split the valid slots in slot order, cut into tiles of 16, tile
+    t to warp t mod 4; per tile the scores as fp32 products of the bf16 q
+    and k, scaled by 1/sqrt(D) after the product, an online softmax per
+    query head, and P.V as the sum of P's three bf16 terms times V; a
+    split's warps merged in warp order, the splits in split order, and a
+    row with no valid slot averaging V uniformly over all C slots."""
+    b, h, d = q.shape
+    bc, c, kh, _ = k.shape
+    g = h // kh
+    assert route(g, d) == "grouped"
+    split, splits = split_plan(c, g, d)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    qb = q.bfloat16().float().reshape(b, kh, g, d)
+    out = torch.empty(b, kh, g, d)
+    for i in range(b):
+        r = int(rows[i].clamp(0, bc - 1))
+        kk, vv, kp = k[r].bfloat16().float(), v[r].bfloat16().float(), k_pos[r]
+        qp = int(q_pos[i])
+        valid = (kp >= 0) & (kp <= qp)
+        if window > 0:
+            valid &= qp - kp < window
+        parts = []
+        for sp in range(splits):
+            lo = sp * split
+            idx = torch.nonzero(valid[lo:lo + split]).flatten() + lo
+            ntiles = -(-len(idx) // GQA_TILE)
+            warps = []
+            for w in range(GQA_WARPS):
+                tiles = range(w, ntiles, GQA_WARPS)
+                if not tiles:
+                    continue
+                m = torch.full((kh, g), -math.inf)
+                l = torch.zeros(kh, g)
+                acc = torch.zeros(kh, g, d)
+                for t in tiles:
+                    sl = idx[t * GQA_TILE:(t + 1) * GQA_TILE]
+                    s = torch.einsum("kgd,nkd->kgn", qb[i], kk[sl]) * scale
+                    mn = torch.maximum(m, s.amax(-1))
+                    f = torch.exp(m - mn)
+                    p = torch.exp(s - mn[..., None])
+                    l = l * f + p.sum(-1)
+                    acc = acc * f[..., None]
+                    for term in _split3(p):
+                        acc = acc + torch.einsum("kgn,nkd->kgd", term, vv[sl])
+                    m = mn
+                warps.append((m, l, acc))
+            parts.append(_merge(warps))
+        merged = _merge(parts)
+        if merged is None:
+            out[i] = vv.mean(dim=0)[:, None, :]
+        else:
+            _, den, num = merged
+            out[i] = num / den[..., None]
+    return out.reshape(b, h, d)
+
+
+def _grouped_case(kind, g, d, seed):
+    """(q, k, v, k_pos, q_pos, rows, window) numpy inputs of one grouped
+    case, bf16-representable (the kernel's inputs are bf16)."""
+    rng = np.random.default_rng(seed)
+    b, bc, c, window = {
+        "short": (4, 4, 2048, 0),
+        "straddle": (4, 4, 1024, 0),
+        "masked": (4, 4, 1024, 0),
+        "wrapped": (3, 4, 700, 0),
+        "window": (3, 4, 700, 300),
+        "sentinel": (4, 5, 1024, 0),
+        "b1": (1, 3, 1000, 0),
+    }[kind]
+    kh = 2
+    bf = lambda x: torch.from_numpy(x.astype(np.float32)).bfloat16().float().numpy()
+    q = bf(rng.standard_normal((b, kh * g, d)) * 2)
+    k = bf(rng.standard_normal((bc, c, kh, d)))
+    v = bf(rng.standard_normal((bc, c, kh, d)))
+    rows = rng.permutation(bc)[:b].astype(np.int32)
+    slots = np.arange(c, dtype=np.int32)
+    if kind in ("wrapped", "window"):
+        q_row = rng.integers(c + 50, 3 * c, bc).astype(np.int32)
+        k_pos = (q_row[:, None] - (q_row[:, None] - slots) % c).astype(np.int32)
+    else:
+        q_row = rng.integers(20, 60, bc).astype(np.int32)
+        if kind == "straddle":  # valid ranges across a grouped split's boundary
+            q_row += 3 * GQA_SPLIT - 40
+        if kind == "b1":
+            q_row[:] = c - 1
+        k_pos = np.where(slots <= q_row[:, None], slots, -1).astype(np.int32)
+        k_pos[rng.random((bc, c)) < 0.1] = -1  # holes
+    q_pos = q_row[np.minimum(rows, bc - 1)].copy()
+    if kind == "masked":
+        k_pos[rows[1]] = -1  # one fully masked row
+    if kind == "sentinel":
+        rows[-1] = bc  # the compacted runtime's out-of-bounds sentinel
+    return q, k, v, k_pos, q_pos, rows, window
+
+
+GROUPED_LAYOUTS = [(4, 128), (8, 128), (8, 64)]
+
+
+class TestFlashDecodeGrouped:
+    """The grouped route's algorithm (G query heads as one tensor-core tile
+    over a 256-slot split, P.V in three bf16 terms), emulated here with the
+    launcher's own plan, against the reference oracle and the Pallas
+    kernel (the kernel itself runs only on the card).  Tolerances: fp32
+    1e-5 (the three bf16 terms carry P to 2^-27 of itself); bf16 one bf16
+    ulp plus 1e-5, as the split route's."""
+
+    @pytest.fixture(autouse=True, scope="class")
+    def one_thread(self):
+        """One intra-op thread: the emulation runs many small ops, and the
+        test run's workers share the cores (oversubscribed intra-op pools
+        slowed this class about tenfold under six workers)."""
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(n)
+
+    @pytest.mark.parametrize("c,g,d,aligned,want", [
+        (4096, 8, 128, True, ("grouped", GQA_SPLIT, 4096 // GQA_SPLIT)),
+        (4096, 4, 128, True, ("grouped", GQA_SPLIT, 4096 // GQA_SPLIT)),
+        (700, 4, 96, True, ("grouped", GQA_SPLIT, -(-700 // GQA_SPLIT))),
+        (4096, 8, 128, False, ("split", SPLIT, 8)),
+        (4096, 4, 72, True, ("split", SPLIT, 8)),
+        (4096, 2, 128, True, ("split", SPLIT, 8)),
+        (4096, 1, 96, True, ("split", SPLIT, 8)),
+        (96, 1, 64, True, ("split", SPLIT, 1)),
+    ])
+    def test_route_and_plan_depend_on_layout_only(self, c, g, d, aligned, want):
+        """The route and the split follow (C, G, D) and K/V's alignment,
+        never the batch, the cache rows, the row map or the data."""
+        assert (route(g, d, aligned), *split_plan(c, g, d, aligned)) == want
+        kh = 2
+        for b, bc, seed in ((1, 1, 0), (8, 3, 1), (3, 8, 2)):
+            gen = torch.Generator().manual_seed(seed)
+            q = torch.randn((b, kh * g, d), generator=gen).bfloat16()
+            kv = []
+            for _ in range(2):
+                n = bc * c * kh * d
+                buf = torch.randn(n + 8, generator=gen).bfloat16()
+                off = next(o for o in range(8) if (buf.data_ptr() + 2 * o) % 16
+                           == (0 if aligned else 4))
+                kv.append(buf[off:off + n].view(bc, c, kh, d))
+            assert call_plan(q, *kv) == want
+
+    @pytest.mark.parametrize("g,d", GROUPED_LAYOUTS)
+    @pytest.mark.parametrize("kind", SPLIT_KINDS)
+    def test_emulation_matches_reference_fp32(self, kind, g, d):
+        q, k, v, kp, qp, rows, window = _grouped_case(kind, g, d, seed=len(kind) + g + d)
+        args = list(map(torch.from_numpy, (q, k, v, kp, qp, rows)))
+        want = tref.flash_decode_ref(*args, window=window)
+        got = _grouped_tiles(*args, window)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+        jwant = jref.flash_decode_ref(*map(jnp.asarray, (q, k, v, kp, qp, rows)),
+                                      window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("g,d", GROUPED_LAYOUTS)
+    @pytest.mark.parametrize("kind", SPLIT_KINDS)
+    def test_emulation_matches_pallas_bf16(self, kind, g, d):
+        q, k, v, kp, qp, rows, window = _grouped_case(kind, g, d, seed=3 * len(kind) + g)
+        (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+        c = k.shape[1]
+        block_c = next(bl for bl in (256, 100, 350) if c % bl == 0)
+        jrows = np.minimum(rows, k.shape[0] - 1)
+        want = np.asarray(flash_decode_pallas(
+            jq, jk, jv, jnp.asarray(kp), jnp.asarray(qp), jnp.asarray(jrows),
+            window=window, block_c=block_c, interpret=True).astype(jnp.float32))
+        got = _grouped_tiles(tq, tk, tv, torch.from_numpy(kp), torch.from_numpy(qp),
+                             torch.from_numpy(rows), window).bfloat16().float().numpy()
+        assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-5)
+
+    def test_three_bf16_terms_carry_p(self):
+        """hi + mid + lo equals an fp32 weight to 2^-24 of it (relative),
+        where one bf16 term alone is off by up to 2^-9 and two by 2^-17."""
+        p = torch.from_numpy(np.random.default_rng(0).random(4096).astype(np.float32))
+        hi, mid, lo = _split3(p)
+        assert float(((hi + mid + lo) - p).abs().div(p).max()) <= 2.0 ** -24
+        assert float((hi - p).abs().div(p).max()) > 2.0 ** -12
