@@ -37,8 +37,9 @@ exit) if any phase fails:
      the train_branchy example's serving leg's shapes: the exit kernel at
      K = 1, B = 16, V = 512 and flash_decode at B = 16, Kh = 4, G = 1,
      D = 64 over a 96-slot ring; the later served layouts: the exit kernel
-     at Phi-3-medium's V = 100,352 (K = 2, 3) and InternVL2's V = 128,256
-     (K = 3), flash_decode at Phi-3-medium's Kh = 10, G = 4,
+     at Phi-3-medium's V = 100,352 (K = 2, 3), InternVL2's V = 128,256
+     (K = 3) and DeepSeek-V3's V = 129,280 (K = 2), flash_decode at
+     Phi-3-medium's Kh = 10, G = 4,
      Qwen3-30B-A3B's Kh = 4, G = 8 and InternVL2's Kh = 8, G = 8 (D = 128),
      each bitwise per head and per row, with device time and bound (and
      SDPA's GQA time); flash_decode's two routes (the grouped route: G in
@@ -48,8 +49,17 @@ exit) if any phase fails:
      slots valid) and "G=4 wide" (B = 8, Kh = 8, G = 4, D = 128, q_pos in
      [C/2, C), 10% holes), each held at one bf16 ulp, row by row against
      the row alone, and timed beside SDPA;
-  4. end to end — four paths, each a ``PartitionedServer`` at full
-     published width and depth with random weights from a seeded
+  3b. mla layer — one DeepSeek-V3 MLA layer at its published width (d
+     7168, 128 heads of 128, q_rank 1536, kv_rank 512, rope 64), bf16,
+     8 rows: a 128-token prompt into a latent ring of 4096 slots, then 16
+     absorbed decode steps, each held within 8 bf16 ulps at the output's
+     scale of the naive expanded form on the same ring (per-head K/V
+     through ``prefill_attention``); the ring's bytes per slot against a
+     GQA ring of the same heads, and both forms' device time (plain
+     PyTorch: MLA has no kernel in either package);
+  4. end to end — seven paths, each a ``PartitionedServer`` at full
+     published width (and depth, but for DeepSeek-V3) with random
+     weights from a seeded
      ``torch.Generator``, 8 slots x 4096 context:
        * Phi-3-mini 3.8B (dense GQA), split 24, edge branches 8 and 16;
        * Zamba2-1.2B (Mamba2 trunk + shared attention block after every 6th
@@ -64,7 +74,14 @@ exit) if any phase fails:
          threshold only;
        * Qwen3-30B-A3B (48 GQA + routed-expert layers: 128 experts, top-8,
          the reference's einsum dispatch; bf16 params, 61 GB), split 25,
-         edge branches 12 and 24.  Kernel vs plain: its first steps are
+         edge branches 12 and 24;
+       * DeepSeek-V3 (MLA, 256 routed experts of moe_d_ff 2048, top-8, 1
+         shared; vocabulary 129,280; bf16 params, 54.4 GB) at full width
+         and 5 of 61 layers: 3 dense MLA layers (d_ff 18,432), then 2 MoE
+         layers; branches 2 and 4, split 4 (the edge runs both stacks and
+         decides branch 2; 4 sits at the cut), and the swap goes to split
+         3, the stack boundary.  Its only kernel is the exit kernel.
+         Kernel vs plain on both MoE paths: their first steps are
          also run on eager twins of both paths that record every MoE
          layer's router logits and top-k; a row whose logits (or entropy,
          or exit mask) differ beyond the bound is listed instead of
@@ -95,7 +112,8 @@ exit) if any phase fails:
      share and tokens/s are printed for both.  Phi-3-mini adds a short run
      with ``heads_batched=False`` for the single-head exit kernel, and
      ``set_split`` 16 -> 24 -> 16 -> 24 whose last two legs capture
-     nothing.  Kernel launch counts are reset just before each run and
+     nothing; DeepSeek-V3 the same swap 3 -> 4 -> 3 -> 4.  Kernel launch
+     counts are reset just before each run and
      read just after it; a graph replay adds the launches its capture
      recorded.
   5. partition — the paper's control plane on the resident weights, at the
@@ -260,12 +278,14 @@ class E2EPath:
     link: bool = False  # the link, pipelined overlap and the fault plane
     bf16_params: bool = False  # the config's fp32 params would not fit
     median_only: bool = False  # serve at the median threshold only
+    swap_to: int = 0  # set_split to this cut and back (swap_phase)
+    reduced: tuple = ()  # (field, value) pairs cutting the config's depth
 
 
 PATHS = (
     E2EPath("phi3_mini_3_8b", 24, NEW_TOKENS, 8,
             ("flash_decode", "entropy_exit_argmax_heads"), single_head=True,
-            partition="full"),
+            partition="full", swap_to=16),
     E2EPath("zamba2_1_2b", 24, NEW_TOKENS, 9,
             ("ssd_update", "ssd_scan", "flash_decode", "entropy_exit_argmax_heads"),
             partition="profile"),
@@ -278,6 +298,14 @@ PATHS = (
             median_only=True),
     E2EPath("qwen3_moe_30b_a3b", 25, NEW_TOKENS, 12,
             ("flash_decode", "entropy_exit_argmax_heads"), bf16_params=True),
+    # DeepSeek-V3 at full width, 5 of its 61 layers (671 B params are 1.34
+    # TB in bf16): the 3 dense MLA layers, then 2 MoE layers.  Split 4 puts
+    # the stack boundary inside the edge tier, which decides branch 2 (4
+    # sits at the cut and is discarded); the swap to 3 cuts at the boundary.
+    # MLA runs no kernel, in either package.
+    E2EPath("deepseek_v3_671b", 4, NEW_TOKENS, 2, ("entropy_exit_argmax_heads",),
+            bf16_params=True, swap_to=3,
+            reduced=(("num_layers", 5), ("first_k_dense", 3), ("branch_layers", (2, 4)))),
 )
 
 
@@ -588,12 +616,15 @@ def exit_kernel_phase(torch, dev, gen) -> list[dict]:
     # block) at the K=2 decision of the served edge and a K=3 pile (the
     # degraded step's fallback joins the stack; the K=1 engine's three
     # heads); Phi-3-medium's V = 100,352 at K = 2 and 3; InternVL2's
-    # V = 128,256 at K = 3 (its K=1 engine: all three heads in one launch).
+    # V = 128,256 at K = 3 (its K=1 engine: all three heads in one launch);
+    # DeepSeek-V3's V = 129,280 at K = 2.
     wide = {}
     for label, key, vq, ks, seed in (("Qwen3-8B", "qwen3", 151936, (2, 3), SEED + 3),
                                      ("Phi-3-medium", "phi3_medium", 100352, (2, 3),
                                       SEED + 6),
-                                     ("InternVL2", "internvl2", 128256, (3,), SEED + 7)):
+                                     ("InternVL2", "internvl2", 128256, (3,), SEED + 7),
+                                     ("DeepSeek-V3", "deepseek_v3", 129280, (2,),
+                                      SEED + 8)):
         lq = (torch.randn((3, b, vq), generator=torch.Generator(device=dev).manual_seed(
             seed), device=dev) * 4).to(torch.bfloat16)
         thq = ref.entropy_exit_argmax_heads_ref(lq, 0.5)[0].median(dim=1).values.float()
@@ -2072,9 +2103,10 @@ def routing_divergence(torch, cfg, split, rec, label):
 
     (step_k, calls_k), (step_p, calls_p) = rec[True], rec[False]
     e, k = cfg.num_experts, cfg.experts_per_token
-    check(len(calls_k) == len(calls_p) == cfg.num_layers,
+    n_moe = cfg.num_layers - cfg.first_k_dense  # the MoE stack follows the dense one
+    check(len(calls_k) == len(calls_p) == n_moe,
           f"{label}: both paths recorded one router call per MoE layer "
-          f"({len(calls_k)}, {len(calls_p)} of {cfg.num_layers})")
+          f"({len(calls_k)}, {len(calls_p)} of {n_moe})")
 
     def rows_of(layer, exited, t):
         order = np.argsort(exited.astype(np.uint8), kind="stable")
@@ -2082,7 +2114,8 @@ def routing_divergence(torch, cfg, split, rec, label):
 
     touched = np.zeros(SLOTS, bool)
     first, margins, moved, composed, worst_agree = None, [], [], [], 0.0
-    for layer, ((lk, ik), (lp, ip)) in enumerate(zip(calls_k, calls_p)):
+    for layer, ((lk, ik), (lp, ip)) in enumerate(zip(calls_k, calls_p),
+                                                 start=cfg.first_k_dense):
         t = ip.shape[1]
         rk, rp = rows_of(layer, step_k["exited"], ik.shape[1]), rows_of(
             layer, step_p["exited"], t)
@@ -2153,15 +2186,21 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
     from repro_torch.serving import PartitionedServer
 
     cfg0 = get_config(path.arch)
+    depth = (f"full width, {dict(path.reduced)['num_layers']} of its "
+             f"{cfg0.num_layers} layers" if path.reduced else "full width and depth")
+    cfg0 = dataclasses.replace(cfg0, **dict(path.reduced))
     if path.bf16_params:
         cfg0 = dataclasses.replace(cfg0, param_dtype="bfloat16")
     split, name, moe = path.split, cfg0.name, cfg0.arch_type == "moe"
-    log(f"end to end: {name} full width and depth ({cfg0.num_layers} layers, "
+    log(f"end to end: {name} {depth} ({cfg0.num_layers} layers, "
         f"d_model {cfg0.d_model}, vocab {cfg0.vocab_size} padded to "
         f"{cfg0.padded_vocab_size}, branches {cfg0.branch_layers}, shared-"
         f"attention sites {hybrid_sites(cfg0)}"
         + (f", {cfg0.num_experts} experts, top-{cfg0.experts_per_token}, "
-           f"moe_d_ff {cfg0.moe_d_ff}" if moe else "")
+           f"moe_d_ff {cfg0.moe_d_ff}, {cfg0.num_shared_experts} shared, first "
+           f"{cfg0.first_k_dense} layers dense" if moe else "")
+        + (f", MLA kv_rank {cfg0.mla_kv_rank} q_rank {cfg0.mla_q_rank} rope "
+           f"{cfg0.mla_rope_dim}" if cfg0.use_mla else "")
         + f"), params {cfg0.param_dtype}, split {split}, {SLOTS} slots x {CONTEXT}")
     released(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -2191,8 +2230,9 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
     log(f"  params ready in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     check(srv.executor.use_kernels, "the server resolved use_kernels=None to the kernels")
-    check(srv.executor.segments[0].branches == cfg0.branch_layers[:2],
-          f"{name}: the edge keeps branches {cfg0.branch_layers[:2]} (K=2)")
+    edge_branches = tuple(b for b in cfg0.branch_layers if b < split)
+    check(srv.executor.segments[0].branches == edge_branches,
+          f"{name}: the edge keeps branches {edge_branches} (K=2)")
 
     vocab = cfg0.vocab_size  # pad lanes (-1e30 on both paths) left out
 
@@ -2410,8 +2450,8 @@ def e2e_phase(torch, dev, path: E2EPath) -> dict:
           f"{run_b['overflow_retries']} overflow re-runs, on both twins")
     launched(run_b, "median threshold")
     runs = [*runs_a[:1], run_b, *runs_a[1:], run_be]
-    if path.partition == "full":
-        runs += swap_phase(torch, srv, 16)
+    if path.swap_to:
+        runs += swap_phase(torch, srv, path.swap_to)
     del srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -2807,6 +2847,99 @@ def entropy_slope(torch, logits):
     pr = logp.exp()
     h_nats = -(pr * logp).sum(-1, keepdim=True)
     return ((pr * (logp + h_nats).abs()).sum(-1) / math.log(logits.shape[-1])).cpu().numpy()
+
+
+#: One full-width DeepSeek-V3 MLA layer: a 128-token prompt into a latent
+#: ring of 4096 slots, then 16 absorbed decode steps.
+MLA_PROMPT, MLA_STEPS = PROMPT, 16
+
+
+def mla_layer_phase(torch, dev) -> dict:
+    """One DeepSeek-V3 MLA layer at its published width in bf16, seeded
+    weights, 8 rows: each absorbed decode step
+    (``mla_apply`` with the latent ring: W_uk folded into the query,
+    scores and the latent read-out in fp32) against the naive expanded
+    form on the same ring — per-head K = [latent W_uk, shared RoPE key]
+    and V = latent W_uv over the positions written so far, through
+    ``prefill_attention`` with the queries of every position, its last
+    row — within 8 bf16 ulps at the output's scale (the two forms round
+    to bf16 at different points: q W_uk against latent W_uk, the fp32
+    read-out against bf16 V).  Logs the ring's bytes per slot against a
+    GQA ring of the same heads, and both forms' device time at the last
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import dense
+    from repro_torch.models.transformer import BlockKind, layer_slice, stack_init
+
+    cfg = get_config("deepseek_v3_671b")
+    bf = torch.bfloat16
+    h, hd, r, rk = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim, cfg.mla_kv_rank
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    p = layer_slice(stack_init(cfg, BlockKind("mla", "dense"), 1, gen, dev, bf), 0)["attn"]
+    n_all = MLA_PROMPT + MLA_STEPS
+    x = torch.randn((SLOTS, n_all, cfg.d_model), generator=gen, device=dev).to(bf)
+    pos_all = torch.arange(n_all, dtype=torch.int32, device=dev)
+    cache = A.init_mla_cache(SLOTS, CONTEXT, cfg, bf, dev)
+    slot_bytes = sum(cache[k][0, 0].numel() * cache[k].element_size()
+                     for k in ("ckv", "k_rope"))
+    gqa_bytes = 2 * h * hd * 2
+    log(f"mla layer: {cfg.name} d {cfg.d_model}, {h} heads of {hd}, q_rank "
+        f"{cfg.mla_q_rank}, kv_rank {rk}, rope {r}, bf16; {SLOTS} rows, prompt "
+        f"{MLA_PROMPT}, ring {CONTEXT} slots; {slot_bytes} B a slot against "
+        f"{gqa_bytes} B for a GQA ring of {h} K/V heads of {hd} ({gqa_bytes / slot_bytes:.1f}x)")
+    scale = 1.0 / math.sqrt(hd + r)
+
+    def naive(n):
+        """The naive form's output at position n - 1 over ring slots 0..n-1."""
+        q_nope, q_rope = A._mla_qkr(p, x[:, :n], cfg, pos_all[:n])
+        ckv, kr = cache["ckv"][:, :n], cache["k_rope"][:, :n]
+        k = torch.cat([dense(p["wk_b"], ckv, bf).reshape(SLOTS, n, h, hd),
+                       kr[:, :, None].expand(SLOTS, n, h, r)], dim=-1)
+        v = dense(p["wv_b"], ckv, bf).reshape(SLOTS, n, h, hd)
+        q = torch.cat([q_nope, q_rope], dim=-1).reshape(SLOTS, n, h, 1, hd + r)
+        out = A.prefill_attention(q, k, v, pos_all[:n], scale=scale)[:, -1:]
+        return dense(p["wo"], out.reshape(SLOTS, 1, h * hd), bf)
+
+    ratios = []  # (|d| / bound, |d|, bound) per decode step
+    with torch.no_grad():
+        A.mla_apply(p, x[:, :MLA_PROMPT], cfg, pos_all[:MLA_PROMPT], cache)
+        check(bool((cache["pos"][:, :MLA_PROMPT] == pos_all[:MLA_PROMPT]).all())
+              and bool((cache["pos"][:, MLA_PROMPT:] == -1).all()),
+              f"mla layer: the prompt's {MLA_PROMPT} positions fill slots 0..{MLA_PROMPT - 1}")
+        for t in range(MLA_PROMPT, n_all):
+            y, _ = A.mla_apply(p, x[:, t:t + 1], cfg, pos_all[t:t + 1], cache)
+            want = naive(t + 1)
+            d = float((y.float() - want.float()).abs().max())
+            if not bool(torch.isfinite(y).all()):
+                d = math.inf
+            ratios.append((d / bf16_ulps(want), d, bf16_ulps(want)))
+        top, worst, tol = max(ratios)
+        check(top <= 1.0,
+              f"mla layer: at each of the {MLA_STEPS} decode steps the absorbed "
+              f"output within 8 bf16 ulps at its scale of the naive form (worst "
+              f"|d| {worst:.4g} against {tol:.4g}, {top:.3f} of its bound)")
+        check(int(cache["length"]) == n_all and bool((cache["pos"][:, :n_all] == pos_all).all()),
+              f"mla layer: {MLA_STEPS} decode steps wrote slots {MLA_PROMPT}..{n_all - 1}")
+        # Both forms' device time at the last position, on a copy of the
+        # ring so the timed writes land where they already did.
+        ring = {k: v.clone() for k, v in cache.items()}
+
+        def absorbed_step():
+            ring["length"].fill_(n_all - 1)
+            A.mla_apply(p, x[:, -1:], cfg, pos_all[-1:], ring)
+
+        absorbed_ms, src, _ = device_ms(absorbed_step)
+        naive_ms, _, _ = device_ms(lambda: naive(n_all))
+    log(f"  mla layer: absorbed decode {absorbed_ms:.4f} ms a step on the device "
+        f"({src}; plain PyTorch, fp32 scores over all {CONTEXT} slots), naive form "
+        f"{naive_ms:.4f} ms over {n_all} positions")
+    del p, cache, ring
+    released(torch)
+    return dict(arch=cfg.name, ring_bytes_per_slot=slot_bytes,
+                gqa_ring_bytes_per_slot=gqa_bytes, steps=MLA_STEPS,
+                absorbed_vs_naive_max_abs=worst, bound=tol, worst_share_of_bound=top,
+                absorbed_decode_ms=absorbed_ms, naive_ms=naive_ms)
 
 
 #: InternVL2-76B's language trunk at full width, its depth cut from 80 to
@@ -3642,6 +3775,8 @@ def main() -> int:
                + ssd_update_phase(torch, dev, gen) + ssd_scan_phase(torch, dev, gen))
     torch.cuda.empty_cache()
     stamp("kernel phases done")
+    mla_layer = mla_layer_phase(torch, dev)
+    stamp("mla layer phase done")
     alexnet = alexnet_phase(torch, dev)
     stamp("alexnet phase done")
     e2e, phase_s = [], {}
@@ -3676,7 +3811,7 @@ def main() -> int:
           f"device_ms left out {len(SHORT_WINDOWS)} <= {MAX_SHORT_RUN} profiler windows "
           f"over the run (kernel, events kept, full): {SHORT_WINDOWS}")
     log(f"phase seconds: {json.dumps(phase_s)}; whole run {time.perf_counter() - t_start:.1f} s")
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, paths=e2e, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, mla_layer=mla_layer, paths=e2e, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

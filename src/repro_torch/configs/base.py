@@ -137,7 +137,8 @@ class ModelConfig:
 
 ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b",
                              "qwen3_8b", "olmo_1b", "phi3_medium_14b",
-                             "internvl2_76b", "qwen3_moe_30b_a3b")
+                             "internvl2_76b", "qwen3_moe_30b_a3b",
+                             "deepseek_v3_671b")
 
 _ALIAS = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
@@ -148,6 +149,7 @@ _ALIAS = {
     "phi3-medium-14b": "phi3_medium_14b",
     "internvl2-76b": "internvl2_76b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

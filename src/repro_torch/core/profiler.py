@@ -290,9 +290,10 @@ def branch_head_cost(
 
 # ------------------------------------------------- serving decode profiles
 def _rings(tree):
-    """The KV ring dicts (keys k, v, pos, length) in a caches tree."""
+    """The ring dicts in a caches tree: KV rings (k, v, pos, length) and
+    MLA's latent rings (ckv, k_rope, pos, length)."""
     if isinstance(tree, dict):
-        if {"k", "v", "pos"} <= tree.keys():
+        if "pos" in tree:
             yield tree
         else:
             for v in tree.values():

@@ -1,4 +1,5 @@
-"""GQA attention with a (ring) KV cache — counterpart of the GQA path of
+"""GQA attention with a (ring) KV cache, and DeepSeek-V3's Multi-head
+Latent Attention (MLA) with its latent ring — counterpart of
 ``repro.models.attention``.
 
 Shapes follow the reference:
@@ -9,6 +10,11 @@ KV cache layout (dict of tensors, the reference's layout):
     k, v:   (B, C, K, D)  — C slots (ring: slot = position % C)
     pos:    (B, C) int32  — absolute position held in each slot, -1 empty
     length: () int32      — tokens decoded so far (lock-step write index)
+
+MLA's latent ring has the same ``pos`` and ``length`` beside ``ckv`` (B,
+C, kv_rank) and ``k_rope`` (B, C, rope_dim) in place of ``k`` / ``v``; the
+ring writes below take the new values by leaf name, so both rings share
+them.
 
 ``pos`` is per sequence, so a row that skipped a step downstream of its
 early exit leaves a hole that attention masks.  Decode entry points take
@@ -39,6 +45,8 @@ __all__ = [
     "FlashAttention",
     "attn_apply",
     "init_kv_cache",
+    "init_mla_cache",
+    "mla_apply",
     "prefill_attention",
     "NEG_INF",
 ]
@@ -85,87 +93,91 @@ def _write_slots(buf: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor,
     buf[every, slot_of] = stage[:bc]
 
 
-def _cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 rows: torch.Tensor | None = None,
+def _cache_write(cache: dict, new: dict, rows: torch.Tensor | None = None,
                  positions: torch.Tensor | None = None) -> dict:
-    """Write one decode step (Sq == 1) into the ring cache, in place.
+    """Write one decode step (Sq == 1) into a ring cache, in place: each
+    entry of ``new`` (B|Bsub, 1, ...) into the cache leaf of its name (K
+    and V; MLA's latent and shared RoPE key).
 
     ``positions`` (B|Bsub, 1) makes the write per sequence: row i writes
     its own slot ``positions[i] % C`` and records its own position
     (continuous batching).  A 1-D ``positions`` (or None) keeps the
     lock-step write at ``length % C`` recording ``length``.  ``rows``
     targets rows of the full-batch cache (sentinels drop)."""
-    c = cache["k"].shape[1]
-    b = k_new.shape[0]
+    c = cache["pos"].shape[1]
+    b = next(iter(new.values())).shape[0]
     if positions is not None and positions.dim() == 2:
         pos_vec = positions[:, 0].to(torch.int32)
         slots = (pos_vec % c).long()
         if rows is None:
-            every = torch.arange(b, device=k_new.device)
-            cache["k"][every, slots] = k_new[:, 0]
-            cache["v"][every, slots] = v_new[:, 0]
+            every = torch.arange(b, device=pos_vec.device)
+            for key, val in new.items():
+                cache[key][every, slots] = val[:, 0]
             cache["pos"][every, slots] = pos_vec
         else:
-            _write_slots(cache["k"], rows, slots, k_new[:, 0])
-            _write_slots(cache["v"], rows, slots, v_new[:, 0])
+            for key, val in new.items():
+                _write_slots(cache[key], rows, slots, val[:, 0])
             _write_slots(cache["pos"], rows, slots, pos_vec)
     else:
         length = cache["length"]
         idx = (length % c).long().reshape(1)
         if rows is None:
-            cache["k"].index_copy_(1, idx, k_new.to(cache["k"].dtype))
-            cache["v"].index_copy_(1, idx, v_new.to(cache["v"].dtype))
+            for key, val in new.items():
+                cache[key].index_copy_(1, idx, val.to(cache[key].dtype))
             cache["pos"].index_copy_(
                 1, idx, length.to(torch.int32).reshape(1, 1).expand(
                     cache["pos"].shape[0], 1).contiguous())
         else:
             n = rows.shape[0]
             slots = idx.expand(n)
-            _write_slots(cache["k"], rows, slots, k_new[:, 0])
-            _write_slots(cache["v"], rows, slots, v_new[:, 0])
+            for key, val in new.items():
+                _write_slots(cache[key], rows, slots, val[:, 0])
             _write_slots(cache["pos"], rows, slots,
                          length.to(torch.int32).expand(n))
     cache["length"] += 1
     return cache
 
 
-def _fresh_rows(k: torch.Tensor, v: torch.Tensor, cap: int, dtype):
-    """(k, v, pos) of freshly initialized cache rows that just prefilled a
-    whole prompt at positions 0..S-1, honoring slot = position % cap."""
-    n, s = k.shape[:2]
-    dev = k.device
+def _fresh_rows(new: dict, cap: int, dtypes: dict):
+    """({name: rows}, pos) of freshly initialized cache rows that just
+    prefilled a whole prompt at positions 0..S-1, honoring slot = position
+    % cap: each entry of ``new`` (n, S, ...) as ``dtypes[name]``."""
+    first = next(iter(new.values()))
+    n, s = first.shape[:2]
+    dev = first.device
     if s >= cap:
         shift = s % cap
-        fk = torch.roll(k[:, s - cap:], shift, dims=1).to(dtype)
-        fv = torch.roll(v[:, s - cap:], shift, dims=1).to(dtype)
+        vals = {key: torch.roll(v[:, s - cap:], shift, dims=1).to(dtypes[key])
+                for key, v in new.items()}
         fp = torch.roll(torch.arange(s - cap, s, dtype=torch.int32, device=dev),
                         shift).expand(n, cap).contiguous()
-        return fk, fv, fp
-    fk = torch.zeros((n, cap, *k.shape[2:]), dtype=dtype, device=dev)
-    fv = torch.zeros_like(fk)
-    fk[:, :s] = k
-    fv[:, :s] = v
+        return vals, fp
+    vals = {}
+    for key, v in new.items():
+        vals[key] = torch.zeros((n, cap, *v.shape[2:]), dtype=dtypes[key], device=dev)
+        vals[key][:, :s] = v
     fp = torch.full((n, cap), -1, dtype=torch.int32, device=dev)
     fp[:, :s] = torch.arange(s, dtype=torch.int32, device=dev)
-    return fk, fv, fp
+    return vals, fp
 
 
-def _cache_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+def _cache_prefill(cache: dict, new: dict) -> dict:
     """Write a whole prompt (S tokens at positions 0..S-1) into every row
-    of the cache in place; slots past the prompt keep what they hold, as
-    in the reference."""
-    s = k.shape[1]
-    cap = cache["k"].shape[1]
+    of the cache in place (``new``: {leaf name: (B, S, ...)}); slots past
+    the prompt keep what they hold, as in the reference."""
+    first = next(iter(new.values()))
+    s = first.shape[1]
+    cap = cache["pos"].shape[1]
     if s >= cap:
-        fk, fv, fp = _fresh_rows(k, v, cap, cache["k"].dtype)
-        cache["k"].copy_(fk)
-        cache["v"].copy_(fv)
+        vals, fp = _fresh_rows(new, cap, {key: cache[key].dtype for key in new})
+        for key, v in vals.items():
+            cache[key].copy_(v)
         cache["pos"].copy_(fp)
     else:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        for key, v in new.items():
+            cache[key][:, :s] = v
         cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32,
-                                           device=k.device)
+                                           device=first.device)
     cache["length"].fill_(s)
     return cache
 
@@ -185,20 +197,22 @@ def plan_rows(rows, bc: int, device):
     return keep.to(device), rows[keep].to(device)
 
 
-def _cache_prefill_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                        rows) -> dict:
+def _cache_prefill_rows(cache: dict, new: dict, rows) -> dict:
     """Row-targeted prompt prefill: row ``rows[i]`` ends exactly as a fresh
     cache that just prefilled prompt i (slots past the prompt reset to
-    empty).  ``rows`` is the host-side admission plan (:func:`plan_rows`).
-    Other rows and ``length`` are untouched."""
-    plan = plan_rows(rows, cache["k"].shape[0], k.device)
+    empty; ``new``: {leaf name: (n, S, ...)}).  ``rows`` is the host-side
+    admission plan (:func:`plan_rows`).  Other rows and ``length`` are
+    untouched."""
+    first = next(iter(new.values()))
+    plan = plan_rows(rows, cache["pos"].shape[0], first.device)
     if plan is None:
         return cache
     sel, tgt = plan
-    fk, fv, fp = _fresh_rows(k[sel], v[sel], cache["k"].shape[1],
-                             cache["k"].dtype)
-    cache["k"][tgt] = fk
-    cache["v"][tgt] = fv
+    vals, fp = _fresh_rows({key: v[sel] for key, v in new.items()},
+                           cache["pos"].shape[1],
+                           {key: cache[key].dtype for key in new})
+    for key, v in vals.items():
+        cache[key][tgt] = v
     cache["pos"][tgt] = fp
     return cache
 
@@ -217,11 +231,17 @@ def _masked_scores(qf: torch.Tensor, kf: torch.Tensor, q_pos: torch.Tensor,
     return torch.where(mask[None, :, None, None, :], sc, NEG_INF)
 
 
+def _scale(q: torch.Tensor, scale: float | None) -> float:
+    """The score scale: ``scale``, else 1/sqrt of q's last dimension."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
 def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   positions: torch.Tensor, window: int):
+                   positions: torch.Tensor, window: int,
+                   scale: float | None = None):
     """(out, m, l): the output and each row's softmax max and sum."""
-    s, d = q.shape[1], q.shape[-1]
-    qf = (q * (1.0 / math.sqrt(d))).float()
+    s = q.shape[1]
+    qf = (q * _scale(q, scale)).float()
     kf, vf = k.float(), v.float()
     outs, ms, ls = [], [], []
     for q0 in range(0, s, _BLOCK_Q):
@@ -244,13 +264,16 @@ def prefill_attention(
     positions: torch.Tensor,  # (S,)
     *,
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Causal (optionally banded) attention over a prompt, fp32 scores and
     the reference's softmax form (m = max(-1e30, max s), p = e^(s - m),
     out = p v / max(sum p, 1e-30)).  Not a kernel in either package: the
     reference runs plain jnp here.  Queries are taken ``_BLOCK_Q`` at a
-    time to bound the (S, S) score memory."""
-    return _attention_fwd(q, k, v, positions, window)[0]
+    time to bound the (S, S) score memory.  ``scale`` multiplies the
+    queries (default 1/sqrt(D)); v's head width may differ from q's and
+    k's (MLA: 192 against 128)."""
+    return _attention_fwd(q, k, v, positions, window, scale)[0]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -262,20 +285,20 @@ class FlashAttention(torch.autograd.Function):
     plain autograd would keep every block's fp32 scores.  Plain PyTorch,
     as the reference's is plain jnp: neither package trains on a kernel.
 
-    ``FlashAttention.apply(q, k, v, positions, window)``."""
+    ``FlashAttention.apply(q, k, v, positions, window, scale=None)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, positions, window):
-        out, m, l = _attention_fwd(q, k, v, positions, window)
+    def forward(ctx, q, k, v, positions, window, scale=None):
+        out, m, l = _attention_fwd(q, k, v, positions, window, scale)
         ctx.save_for_backward(q, k, v, positions, out, m, l)
         ctx.window = window
+        ctx.scale = _scale(q, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, positions, out, m, l = ctx.saved_tensors
-        s, d = q.shape[1], q.shape[-1]
-        scale = 1.0 / math.sqrt(d)
+        s, scale = q.shape[1], ctx.scale
         qf = (q * scale).float()
         kf, vf = k.float(), v.float()
         do = dout.float()
@@ -294,7 +317,7 @@ class FlashAttention(torch.autograd.Function):
             dq[:, blk] = torch.einsum("bqkgs,bskd->bqkgd", ds, kf)
             dk += torch.einsum("bqkgs,bqkgd->bskd", ds, qf[:, blk])
         return ((dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None)
+                None, None, None)
 
 
 # ============================================================== standard GQA
@@ -338,12 +361,12 @@ def attn_apply(
 
     if cache is not None and s > 1:
         if rows is None:
-            _cache_prefill(cache, k, v)
+            _cache_prefill(cache, {"k": k, "v": v})
         else:
-            _cache_prefill_rows(cache, k, v, rows)
+            _cache_prefill_rows(cache, {"k": k, "v": v}, rows)
         out = prefill_attention(qg, k, v, positions, window=window)
     elif cache is not None:
-        _cache_write(cache, k, v, rows, positions)
+        _cache_write(cache, {"k": k, "v": v}, rows, positions)
         q_pos = positions[:, 0] if positions.dim() == 2 else positions[0]
         decode = kernel_ops.flash_decode if use_kernels else flash_decode_ref
         out = decode(qg.reshape(b, kh * g, hd), cache["k"], cache["v"],
@@ -351,4 +374,125 @@ def attn_apply(
     else:
         out = FlashAttention.apply(qg, k, v, positions, window)
     out = out.reshape(b, s, kh * g * hd)
+    return dense(params["wo"], out, dtype), cache
+
+
+# ======================================================================= MLA
+def init_mla_cache(batch: int, capacity: int, cfg: ModelConfig,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    """An empty MLA latent ring on ``device`` (default: the current CUDA
+    device): ``ckv`` (B, C, kv_rank), the latent every head's K and V
+    expand from; ``k_rope`` (B, C, rope_dim), the RoPE key all heads share;
+    ``pos`` and ``length`` as in the KV ring."""
+    device = kernel_ops.resolve_device(device)
+    return {
+        "ckv": torch.zeros((batch, capacity, cfg.mla_kv_rank), dtype=dtype,
+                           device=device),
+        "k_rope": torch.zeros((batch, capacity, cfg.mla_rope_dim), dtype=dtype,
+                              device=device),
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
+        "length": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _mla_qkr(params: dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The query path through its low-rank bottleneck: (q_nope (B, S, H,
+    hd), q_rope (B, S, H, rope_dim) with RoPE applied)."""
+    b, s, _ = x.shape
+    h, hd, r_rope = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
+    dtype = x.dtype
+    qa = rmsnorm(params["q_norm"], dense(params["wq_a"], x, dtype))
+    qb = dense(params["wq_b"], qa, dtype).reshape(b, s, h, hd + r_rope)
+    q_nope, q_rope = qb[..., :hd], qb[..., hd:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_decode(params: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                cache: dict, cfg: ModelConfig, positions: torch.Tensor,
+                rows, scale: float) -> torch.Tensor:
+    """Absorbed decode over the latent ring (cache already written): W_uk
+    folded into the query, scores and the latent read-out in fp32 (the
+    reference's casts), then W_uv.  Returns (B, 1, H, hd).  A sentinel
+    row reads a clamped row; its output is discarded by the caller."""
+    h, hd, r_kv = cfg.num_heads, cfg.head_dim, cfg.mla_kv_rank
+    dtype = q_nope.dtype
+    ckv, rope, pos = cache["ckv"], cache["k_rope"], cache["pos"]
+    if rows is not None:
+        r = rows.long().clamp(max=ckv.shape[0] - 1)
+        ckv, rope, pos = ckv[r], rope[r], pos[r]
+    ckv_f = ckv.float()
+    wk_b = params["wk_b"].to(dtype).reshape(r_kv, h, hd)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)
+    s_lat = torch.einsum("bshr,bcr->bshc", q_lat.float(), ckv_f)
+    s_rope = torch.einsum("bshr,bcr->bshc", q_rope.float(), rope.float())
+    logits = (s_lat + s_rope) * scale  # (B, 1, H, C)
+    q_pos = positions if positions.dim() == 2 else positions[None]  # (B|1, 1)
+    mask = (q_pos[..., None] >= pos[:, None, :]) & (pos[:, None, :] >= 0)
+    if cfg.sliding_window > 0:
+        mask = mask & (q_pos[..., None] - pos[:, None, :] < cfg.sliding_window)
+    logits = torch.where(mask[:, :, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bshc,bcr->bshr", p, ckv_f)
+    wv_b = params["wv_b"].to(dtype).reshape(r_kv, h, hd)
+    return torch.einsum("bshr,rhd->bshd", o_lat.to(dtype), wv_b)
+
+
+def mla_apply(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d_model)
+    cfg: ModelConfig,
+    positions: torch.Tensor,  # (S,) shared, or (B, 1) per sequence at decode
+    cache: dict | None = None,
+    *,
+    rows=None,
+) -> tuple[torch.Tensor, dict | None]:
+    """DeepSeek-V3's Multi-head Latent Attention [arXiv:2412.19437]: the
+    queries through a low-rank bottleneck, keys and values through one
+    latent shared by the heads, plus a small RoPE key every head shares;
+    only (latent, RoPE key) is cached — 1,152 B a slot a layer in bf16 at
+    the published ranks, against 64 KiB for 128 full K/V heads of 128.
+
+    ``cache=None`` or S > 1 (training, prefill): the latent expanded to
+    per-head K (128 + 64 wide with the shared RoPE key) and V (128), through
+    :class:`FlashAttention` (cache-free) or :func:`prefill_attention`
+    (writing the ring: ``rows`` targets admitted rows, a host-side plan),
+    scaled by 1/sqrt(hd + rope_dim).  S == 1 with a cache: the absorbed
+    decode in the latent space (:func:`_mla_decode`) after writing the
+    step — lock-step at ``length``, per sequence under (B, 1) positions,
+    or into ``rows`` of the full-batch ring (a device tensor; sentinel
+    rows drop their writes).  Plain PyTorch: the reference has no kernel
+    for MLA."""
+    b, s, _ = x.shape
+    h, hd, r_rope = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
+    r_kv = cfg.mla_kv_rank
+    dtype = x.dtype
+    scale = 1.0 / math.sqrt(hd + r_rope)
+
+    q_nope, q_rope = _mla_qkr(params, x, cfg, positions)
+    kv = dense(params["wkv_a"], x, dtype)  # (B, S, r_kv + r_rope)
+    ckv = rmsnorm(params["kv_norm"], kv[..., :r_kv])
+    k_rope = apply_rope(kv[..., None, r_kv:], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is None or s > 1:
+        k_nope = dense(params["wk_b"], ckv, dtype).reshape(b, s, h, hd)
+        v = dense(params["wv_b"], ckv, dtype).reshape(b, s, h, hd)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, r_rope)],
+                           dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, h, 1, hd + r_rope)
+        if cache is None:
+            out = FlashAttention.apply(q_full, k_full, v, positions,
+                                       cfg.sliding_window, scale)
+        else:
+            new = {"ckv": ckv, "k_rope": k_rope}
+            if rows is None:
+                _cache_prefill(cache, new)
+            else:
+                _cache_prefill_rows(cache, new, rows)
+            out = prefill_attention(q_full, k_full, v, positions,
+                                    window=cfg.sliding_window, scale=scale)
+    else:
+        _cache_write(cache, {"ckv": ckv, "k_rope": k_rope}, rows, positions)
+        out = _mla_decode(params, q_nope, q_rope, cache, cfg, positions, rows, scale)
+    out = out.reshape(b, s, h * hd)
     return dense(params["wo"], out, dtype), cache

@@ -112,7 +112,8 @@ def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         g = dense(params["w_gate"], x, dtype)
         u = dense(params["w_up"], x, dtype)
         return dense(params["w_down"], silu(g) * u, dtype)
-    raise NotImplementedError(f"the port has no {mlp_type!r} MLP yet")
+    raise NotImplementedError(
+        f"the port has no {mlp_type!r} MLP yet (ROADMAP queue 1: Whisper)")
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,

@@ -1,5 +1,5 @@
-"""BranchyModel for the dense GQA, routed-expert (``moe``: Qwen3-30B-A3B),
-vision-language (``vlm``: InternVL2's language trunk), Mamba2 (``ssm``) and
+"""BranchyModel for the dense GQA, routed-expert (``moe``: Qwen3-30B-A3B;
+DeepSeek-V3's MLA trunk of a dense stack then an MoE stack), vision-language (``vlm``: InternVL2's language trunk), Mamba2 (``ssm``) and
 Zamba2 (``hybrid``) trunks: backbone + tied side branches, with prefill /
 decode entry points — counterpart of ``repro.models.model``.
 
@@ -22,7 +22,10 @@ Params (the reference's pytree layout, as tensors):
      block's experts under "moe", see :mod:`repro_torch.models.moe`),
      "final_norm": {"scale": (D,)}, "lm_head": (D, V) (absent when the
      embedding is tied), "branches": {"scale": (n_branches, D)},
-     "shared_attn": one GQA block (hybrid)}
+     "shared_attn": one GQA block (hybrid),
+     "dense_blocks": the first ``first_k_dense`` layers, stacked, before
+     "blocks" (DeepSeek-V3), "mtp_block": one dense block and "mtp_norm"
+     (``use_mtp``)}
 Under the non-parametric LayerNorm (OLMo) every norm's params, the
 branches' included, are ``{}``.
 
@@ -37,7 +40,10 @@ Caches (full-batch resident, updated in place):
                          "length": (L,) int32}}             (dense)
                {"self": {"conv": (L, B, W-1, conv_dim) f32,
                          "ssm": (L, B, H, P, N) f32, "length": (L,)}}  (ssm)
-     "shared_attn": {"self": KV ring with a leading (n_sites,) axis} (hybrid)}
+     "shared_attn": {"self": KV ring with a leading (n_sites,) axis} (hybrid),
+     "dense_blocks", "blocks": {"self": {"ckv": (L, B, C, kv_rank),
+                         "k_rope": (L, B, C, rope_dim), "pos", "length"}}
+                                                            (MLA)}
 """
 
 from __future__ import annotations
@@ -81,7 +87,8 @@ __all__ = [
 
 _MATMUL_LEAVES = frozenset(
     {"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-     "w_z", "w_xbc", "w_dt", "out_proj", "router"}
+     "w_z", "w_xbc", "w_dt", "out_proj", "router",
+     "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b"}
 )
 
 
@@ -94,16 +101,18 @@ def trunk_layout(cfg: ModelConfig) -> list[tuple[str, BlockKind, int]]:
     if cfg.arch_type in ("dense", "vlm"):
         return [("blocks", BlockKind("gqa", "dense"), cfg.num_layers)]
     if cfg.arch_type == "moe":
-        if cfg.use_mla or cfg.first_k_dense:
-            raise NotImplementedError(
-                "the port has no MLA and no first_k_dense stack yet "
-                "(ROADMAP queue 1: DeepSeek-V3)")
-        return [("blocks", BlockKind("gqa", "moe"), cfg.num_layers)]
+        mixer = "mla" if cfg.use_mla else "gqa"
+        out = []
+        if cfg.first_k_dense:  # DeepSeek-V3: the first layers stay dense
+            out.append(("dense_blocks", BlockKind(mixer, "dense"), cfg.first_k_dense))
+        out.append(("blocks", BlockKind(mixer, "moe"),
+                    cfg.num_layers - cfg.first_k_dense))
+        return out
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("blocks", BlockKind("mamba", "none"), cfg.num_layers)]
     raise NotImplementedError(
         f"the port runs dense, vlm, moe, ssm and hybrid trunks, not "
-        f"{cfg.arch_type!r}")
+        f"{cfg.arch_type!r} (ROADMAP queue 1: Whisper)")
 
 
 def hybrid_sites(cfg: ModelConfig) -> tuple[int, ...]:
@@ -114,6 +123,12 @@ def hybrid_sites(cfg: ModelConfig) -> tuple[int, ...]:
 
 
 _SHARED_ATTN_KIND = BlockKind("gqa", "dense")
+
+
+def _mtp_kind(cfg: ModelConfig) -> BlockKind:
+    """The multi-token-prediction block: one dense block of the trunk's
+    attention kind."""
+    return BlockKind("mla" if cfg.use_mla else "gqa", "dense")
 
 
 def _total_layers(cfg: ModelConfig) -> int:
@@ -157,6 +172,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = normal(d, v, std=0.02)
     if cfg.branch_layers:
         params["branches"] = norm((len(cfg.branch_layers),))
+    if cfg.use_mtp:
+        params["mtp_block"] = layer_slice(
+            stack_init(cfg, _mtp_kind(cfg), 1, generator, device, pd), 0)
+        params["mtp_norm"] = norm()
     return params
 
 
@@ -213,8 +232,10 @@ def run_trunk(
     remat: bool = False,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float,
            dict[int, torch.Tensor]]:
-    """Run trunk layers [lo, hi), segmenting at the ``collect`` layers and
-    (hybrid) the shared-attention sites.  Returns (h, caches, aux, {layer:
+    """Run trunk layers [lo, hi), segmenting at the ``collect`` layers,
+    (hybrid) the shared-attention sites and the ends of the trunk's stacks
+    (DeepSeek-V3: the dense stack, then the MoE stack; layers are numbered
+    across them).  Returns (h, caches, aux, {layer:
     hidden}); caches are updated in place; aux is the summed router aux
     loss of the MoE blocks run (0.0 when none ran).  The shared block runs with the
     layer it follows, so a cut after site s keeps s on the lower tier.
@@ -224,22 +245,31 @@ def run_trunk(
     trunk layer is recomputed in the backward pass (the shared block is
     not, as in the reference).  ``moe_dispatch``: the MoE blocks' dispatch
     mode (:func:`repro_torch.models.moe.moe_apply`)."""
-    (name, kind, n), = trunk_layout(cfg)
-    lo, hi = layer_range or (0, n)
+    stacks, acc = [], 0  # (param key, kind, first layer, end)
+    for name, kind, n in trunk_layout(cfg):
+        stacks.append((name, kind, acc, acc + n))
+        acc += n
+    lo, hi = layer_range or (0, acc)
     sites = hybrid_sites(cfg)
-    stops = sorted({hi, *(c for c in (*collect, *sites) if lo < c < hi)})
+    # A stack's end is a stop too, so no segment crosses two stacks.
+    stops = sorted({hi, *(c for c in (*collect, *sites, *(e for *_, e in stacks))
+                          if lo < c < hi)})
+    # Each stack's layers in [lo, hi), unbound once, keyed relative to it.
+    layers = {name: unstack(params[name], max(lo, s_lo) - s_lo, min(hi, s_hi) - s_lo)
+              for name, _, s_lo, s_hi in stacks if s_lo < hi and lo < s_hi}
     collected: dict[int, torch.Tensor] = {}
-    layers = unstack(params[name], lo, hi)
     aux = 0.0
     start = lo
     for stop in stops:
-        h, a = run_stack(
-            layers, h, cfg, kind, positions,
-            caches[name] if caches is not None else None,
-            lo=start, hi=stop, moe_dispatch=moe_dispatch, rows=rows,
-            use_kernels=use_kernels, remat=remat,
-        )
-        aux = aux + a
+        if start < stop:
+            name, kind, s_lo, _ = next(st for st in stacks if st[2] <= start < st[3])
+            h, a = run_stack(
+                layers[name], h, cfg, kind, positions,
+                caches[name] if caches is not None else None,
+                lo=start - s_lo, hi=stop - s_lo, moe_dispatch=moe_dispatch,
+                rows=rows, use_kernels=use_kernels, remat=remat,
+            )
+            aux = aux + a
         if stop in sites:
             site_cache = (layer_slice(caches["shared_attn"], sites.index(stop))
                           if caches is not None else None)
@@ -428,7 +458,8 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     """The joint BranchyNet training loss (paper Sec. III, BranchyNet [5]):
     main CE + ``branch_loss_weight`` x sum_k CE_k + ``router_aux_weight``
     x the summed router aux loss of the MoE blocks (zero for a trunk
-    without experts).  ``batch``: ``tokens`` and ``labels`` (B, S),
+    without experts), + 0.3 x the multi-token-prediction CE under
+    ``use_mtp`` (reported as ``branch_losses["mtp"]``).  ``batch``: ``tokens`` and ``labels`` (B, S),
     optional ``mask``, and ``patch_embeds`` under the vision frontend,
     whose positions' logits every head drops; token t predicts label
     t + 1.
@@ -438,8 +469,6 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     All K branch heads share one stacked norm and one unembedding (the
     serving runtime prices them the same way); the backward pass's
     recompute materializes all K heads' logits at once."""
-    if cfg.use_mtp:
-        raise NotImplementedError(_NO_FRONTEND.format("multi-token prediction"))
     h, positions = _embed_inputs(params, batch, cfg)
     h2, _, aux, collected = run_trunk(params, h, cfg, positions,
                                       collect=cfg.branch_layers,
@@ -471,5 +500,21 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     loss = main_loss + cfg.branch_loss_weight * sum(branch_losses.values())
     loss = loss + cfg.router_aux_weight * aux
+    if cfg.use_mtp:
+        # DeepSeek-V3's multi-token prediction, single depth as in the
+        # reference: one more dense block on the trunk's output predicts
+        # token t + 2.
+        labels2 = batch["labels"][:, 2:]
+        mask2 = None if batch.get("mask") is None else batch["mask"][:, 2:]
+
+        def mtp_loss_fn(h):
+            h_mtp, _ = block_apply(params["mtp_block"], h, cfg, _mtp_kind(cfg),
+                                   positions)
+            hn = norm_apply(cfg.norm_type, params["mtp_norm"], h_mtp)
+            logits = _unembed(params, hn, cfg)[:, n_patch:]
+            return softmax_xent(logits[:, :-2], labels2, mask2)
+
+        branch_losses["mtp"] = recomputed(mtp_loss_fn, h2)
+        loss = loss + 0.3 * branch_losses["mtp"]
     return {"loss": loss, "main_loss": main_loss, "aux_loss": aux,
             "branch_losses": branch_losses}

@@ -59,9 +59,9 @@ def moe_init(cfg: ModelConfig, n_layers: int, generator: torch.Generator,
     """Random params of ``n_layers`` MoE blocks, stacked, in ``dtype``:
     the router N(0, 0.02^2) truncated at 2 sigma, fan-in scaled truncated
     normals for the experts.  The expert leaves are drawn one layer at a
-    time and cast as they come, so the fp32 draw of one layer's leaf is
-    the transient (Qwen3-30B-A3B: 0.8 GB, against 38.6 GB for a whole
-    fp32 stack)."""
+    time and cast as they are copied into the stack, so the fp32 draw of
+    one layer's leaf is the transient (Qwen3-30B-A3B: 0.8 GB, against 38.6
+    GB for a whole fp32 stack; DeepSeek-V3: 15 GB)."""
     d, ff, e, n = cfg.d_model, cfg.moe_d_ff, cfg.num_experts, n_layers
 
     def draw(shape, scale):
@@ -69,9 +69,13 @@ def moe_init(cfg: ModelConfig, n_layers: int, generator: torch.Generator,
         return truncated_normal_(t, generator, scale).to(dtype)
 
     def experts(d_in, d_out):
+        # Each layer's fp32 draw is cast as it is copied into the stack, so
+        # no second (bf16) copy of the layer stands beside it.
         out = torch.empty((n, e, d_in, d_out), dtype=dtype, device=device)
         for i in range(n):
-            out[i] = draw((e, d_in, d_out), d_in ** -0.5)
+            t = torch.empty((e, d_in, d_out), device=device)
+            out[i].copy_(truncated_normal_(t, generator, d_in ** -0.5))
+            del t
         return out
 
     p = {

@@ -1,7 +1,8 @@
 """Block assembly and layer-stack execution — counterpart of
 ``repro.models.transformer`` for ``BlockKind("gqa", "dense")`` (the dense
 and vlm trunks and Zamba2's shared attention block), ``BlockKind("gqa",
-"moe")`` (the routed-expert trunk of Qwen3-30B-A3B) and
+"moe")`` (the routed-expert trunk of Qwen3-30B-A3B), ``BlockKind("mla",
+"dense")`` and ``BlockKind("mla", "moe")`` (DeepSeek-V3's two stacks) and
 ``BlockKind("mamba", "none")`` (the Mamba2 trunk).
 
 Parameters keep the reference's stacked layout: every leaf of a stack
@@ -38,12 +39,13 @@ __all__ = [
     "unstack",
 ]
 
-_PORTED = {("gqa", "dense"), ("gqa", "moe"), ("mamba", "none")}
+_PORTED = {("gqa", "dense"), ("gqa", "moe"), ("mla", "dense"), ("mla", "moe"),
+           ("mamba", "none")}
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockKind:
-    mixer: str  # "gqa" | "mamba"
+    mixer: str  # "gqa" | "mla" | "mamba"
     mlp: str  # "dense" | "moe" | "none"
     use_rope: bool = True
 
@@ -123,6 +125,19 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
         if cfg.use_qk_norm:  # Qwen3: RMSNorm of each q and k head
             p["attn"]["q_norm"] = {"scale": ones(cfg.head_dim)}
             p["attn"]["k_norm"] = {"scale": ones(cfg.head_dim)}
+    elif kind.mixer == "mla":
+        h, hd, r_rope = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
+        r_q, r_kv = cfg.mla_q_rank, cfg.mla_kv_rank
+        p["attn"] = {
+            "wq_a": proj(d, r_q),
+            "q_norm": {"scale": ones(r_q)},
+            "wq_b": proj(r_q, h * (hd + r_rope)),
+            "wkv_a": proj(d, r_kv + r_rope),
+            "kv_norm": {"scale": ones(r_kv)},
+            "wk_b": proj(r_kv, h * hd),  # latent -> per-head key
+            "wv_b": proj(r_kv, h * hd),  # latent -> per-head value
+            "wo": proj(h * hd, d),
+        }
     else:
         p["mamba"] = cast_tree(mamba_mod.mamba_init(cfg, n, generator, device), dtype)
     if kind.mlp == "dense":
@@ -140,12 +155,14 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
 
 def init_block_cache(batch: int, capacity: int, cfg: ModelConfig,
                      kind: BlockKind, dtype, device) -> dict:
-    """Decode-time cache of one block: a KV ring for attention, the fp32
-    conv window and SSM state for Mamba2."""
+    """Decode-time cache of one block: a KV ring for attention, a latent
+    ring for MLA, the fp32 conv window and SSM state for Mamba2."""
     _check(kind)
     if kind.mixer == "gqa":
         return {"self": attn_mod.init_kv_cache(
             batch, capacity, cfg.num_kv_heads, cfg.head_dim, dtype, device)}
+    if kind.mixer == "mla":
+        return {"self": attn_mod.init_mla_cache(batch, capacity, cfg, dtype, device)}
     return {"self": mamba_mod.init_ssm_state(batch, cfg, device)}
 
 
@@ -161,10 +178,11 @@ def block_apply(
     rows=None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One pre-norm residual block: the mixer (attention or Mamba2), then
-    the MLP (dense or routed experts) if the block has one.  ``cache``
-    (this layer's view) is updated in place.  Returns (h, the router's aux
-    loss; None for a block without experts)."""
+    """One pre-norm residual block: the mixer (attention, MLA or Mamba2),
+    then the MLP (dense or routed experts) if the block has one.
+    ``cache`` (this layer's view) is updated in place.  Returns (h, the
+    router's aux loss; None for a block without experts).  MLA has no
+    kernel (nor has the reference's): ``use_kernels`` leaves it as it is."""
     _check(kind)
     hn = norm_apply(cfg.norm_type, params["norm1"], h)
     kernels = use_kernels and cache is not None
@@ -172,6 +190,11 @@ def block_apply(
         y, _ = attn_mod.attn_apply(
             params["attn"], hn, cfg, positions,
             cache["self"] if cache else None, rows=rows, use_kernels=kernels,
+        )
+    elif kind.mixer == "mla":
+        y, _ = attn_mod.mla_apply(
+            params["attn"], hn, cfg, positions, cache["self"] if cache else None,
+            rows=rows if cache else None,
         )
     else:
         y, _ = mamba_mod.mamba_apply(

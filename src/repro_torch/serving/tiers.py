@@ -73,7 +73,8 @@ What the port changes, and why:
     reference re-runs an overflowed step from its immutable entry caches;
     here the step first snapshots what it can write and restores it before
     a re-run: for every KV ring (trunk layers and hybrid shared-attention
-    sites), per layer and row, the one slot the step writes (``pos % C``,
+    sites) and every MLA latent ring (its ``ckv``, ``k_rope`` and ``pos``),
+    per layer and row, the one slot the step writes (``pos % C``,
     or ``length % C`` in lock-step) — a few MB instead of a clone of the
     cache; for every Mamba2 layer the whole conv window and SSM state,
     which a step overwrites in every row it runs (about 320 MB at
@@ -798,12 +799,13 @@ class TierExecutor:
 
     # ---------------------------------------------- overflow-retry state
     def _stateful(self, caches):
-        """(KV rings, Mamba2 states) of the caches: the stacked ``self``
-        dicts of the trunk's attention stacks and hybrid shared-attention
-        sites, and of its Mamba2 stacks."""
+        """(rings, Mamba2 states) of the caches: the stacked ``self`` dicts
+        of the trunk's attention stacks (KV rings; MLA's latent rings) and
+        hybrid shared-attention sites, and of its Mamba2 stacks."""
         rings, states = [], []
         for name, kind, _n in trunk_layout(self.cfg):
-            (rings if kind.mixer == "gqa" else states).append(caches[name]["self"])
+            (rings if kind.mixer in ("gqa", "mla") else states).append(
+                caches[name]["self"])
         if hybrid_sites(self.cfg):
             rings.append(caches["shared_attn"]["self"])
         return rings, states
@@ -822,7 +824,7 @@ class TierExecutor:
             li = torch.arange(n, device=self.device)[:, None]
             bi = torch.arange(bc, device=self.device)[None, :]
             idx = (li, bi, slots)
-            saved.append((kv, idx, {k: kv[k][idx].clone() for k in ("k", "v", "pos")}))
+            saved.append((kv, idx, {k: kv[k][idx].clone() for k in kv if k != "length"}))
         for st in states:
             saved.append((st, None, {k: st[k].clone() for k in ("conv", "ssm")}))
         lengths = [(t, t.clone()) for t in

@@ -187,7 +187,8 @@ class TestCacheWrite:
         cache = TA.init_kv_cache(4, 6, 1, 2, torch.float32, "cpu")
         k_new = torch.arange(6, dtype=torch.float32).reshape(3, 1, 1, 2) + 1
         rows = torch.tensor([2, 4, 0])  # 4 = out-of-bounds sentinel
-        TA._cache_write(cache, k_new, -k_new, rows, torch.tensor([[7], [8], [9]]))
+        TA._cache_write(cache, {"k": k_new, "v": -k_new}, rows,
+                        torch.tensor([[7], [8], [9]]))
         assert cache["pos"].tolist() == [
             [-1, -1, -1, 9, -1, -1], [-1] * 6, [-1, 7, -1, -1, -1, -1], [-1] * 6]
         assert cache["k"][2, 1, 0].tolist() == [1.0, 2.0]

@@ -178,12 +178,11 @@ def test_olmo_nonparametric_ln_and_tied_embedding():
 
 
 @pytest.mark.parametrize("arch,kw", [("internvl2_76b", {"frontend": "audio"}),
-                                     ("whisper_medium", {}),
-                                     ("olmo_1b", {"use_mtp": True})])
+                                     ("whisper_medium", {})])
 def test_unported_frontends_raise(arch, kw):
     """The audio frontend (on the vlm config too: the port runs its vision
-    frontend, ``test_torch_archs.py``) and multi-token prediction raise,
-    naming the roadmap item that ports them."""
+    frontend, ``test_torch_archs.py``) raises, naming the roadmap item
+    that ports it."""
     cfg = ModelConfig(**dataclasses.asdict(dataclasses.replace(get_smoke_config(arch), **kw)))
     batch = {k: torch.from_numpy(v) for k, v in TD.make_batch(cfg, 2, 8).items()}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1: other trunks"):
