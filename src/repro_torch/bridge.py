@@ -5,7 +5,8 @@ keeps the same trees (nested dicts) of torch tensors.  The bridge speaks
 numpy on the JAX side, so this module imports no JAX: callers hand it
 ``jax.tree.map(np.asarray, tree)`` and get numpy trees back.
 
-  * fp32 and int32 arrays transfer bitwise;
+  * fp32 and int32 arrays transfer bitwise; tuples stay tuples (Whisper's
+    ``caches["cross_kv"]`` is a tuple ``(k, v)``);
   * bf16 arrays (``ml_dtypes.bfloat16`` in numpy, which
     ``torch.from_numpy`` cannot take) go through float32, which holds every
     bf16 value exactly, and are cast back to bf16 on the torch side;

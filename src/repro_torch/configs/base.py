@@ -3,8 +3,8 @@
 The port keeps its own copy of the reference package's configuration
 dataclass (``repro.configs.base``): the fields are identical, so a config
 built by either package converts to the other with
-``ModelConfig(**dataclasses.asdict(cfg))``.  Only the architectures the port
-runs are registered (``ARCH_IDS``); each has a module in this package
+``ModelConfig(**dataclasses.asdict(cfg))``.  Every architecture of the
+reference is registered (``ARCH_IDS``); each has a module in this package
 exporting ``CONFIG`` (the published configuration, cited) and
 ``smoke_config()`` (a reduced variant for CPU tests).
 
@@ -138,7 +138,7 @@ class ModelConfig:
 ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b",
                              "qwen3_8b", "olmo_1b", "phi3_medium_14b",
                              "internvl2_76b", "qwen3_moe_30b_a3b",
-                             "deepseek_v3_671b")
+                             "deepseek_v3_671b", "whisper_medium")
 
 _ALIAS = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
@@ -150,6 +150,7 @@ _ALIAS = {
     "internvl2-76b": "internvl2_76b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "whisper-medium": "whisper_medium",
 }
 
 

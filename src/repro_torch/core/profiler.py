@@ -337,7 +337,10 @@ def decode_layer_fns(
     earlier positions in every KV ring.  The reference profiles over empty
     rings, which its Pallas kernel reads whole anyway; the port's
     ``flash_decode`` reads the valid slots only, so an empty ring would
-    price attention at almost nothing.
+    price attention at almost nothing.  A Whisper decoder layer's caches
+    carry the (zero) cross K/V over every encoder frame, as the
+    reference's ``init_caches`` does, so both modes price its
+    cross-attention over all ``encoder_seq_len`` frames.
 
     ``output_bytes`` of each callable is the residual stream — the
     paper's per-layer ``alpha_i`` — because the cache stays resident and

@@ -238,15 +238,18 @@ def _scale(q: torch.Tensor, scale: float | None) -> float:
 
 def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    positions: torch.Tensor, window: int,
-                   scale: float | None = None):
-    """(out, m, l): the output and each row's softmax max and sum."""
+                   scale: float | None = None, k_pos: torch.Tensor | None = None):
+    """(out, m, l): the output and each row's softmax max and sum.  The
+    queries sit at ``positions``, the keys at ``k_pos`` (default: the
+    same positions)."""
     s = q.shape[1]
+    k_pos = positions if k_pos is None else k_pos
     qf = (q * _scale(q, scale)).float()
     kf, vf = k.float(), v.float()
     outs, ms, ls = [], [], []
     for q0 in range(0, s, _BLOCK_Q):
         sc = _masked_scores(qf[:, q0:q0 + _BLOCK_Q], kf,
-                            positions[q0:q0 + _BLOCK_Q], positions, window)
+                            positions[q0:q0 + _BLOCK_Q], k_pos, window)
         m = sc.amax(dim=-1).clamp(min=NEG_INF)
         p = torch.exp(sc - m[..., None])
         l = p.sum(dim=-1)
@@ -265,6 +268,7 @@ def prefill_attention(
     *,
     window: int = 0,
     scale: float | None = None,
+    k_pos: torch.Tensor | None = None,  # (Sk,): keys' positions if not q's
 ) -> torch.Tensor:
     """Causal (optionally banded) attention over a prompt, fp32 scores and
     the reference's softmax form (m = max(-1e30, max s), p = e^(s - m),
@@ -272,8 +276,9 @@ def prefill_attention(
     reference runs plain jnp here.  Queries are taken ``_BLOCK_Q`` at a
     time to bound the (S, S) score memory.  ``scale`` multiplies the
     queries (default 1/sqrt(D)); v's head width may differ from q's and
-    k's (MLA: 192 against 128)."""
-    return _attention_fwd(q, k, v, positions, window, scale)[0]
+    k's (MLA: 192 against 128).  ``k_pos``: the keys' own positions
+    (cross-attention over encoder frames)."""
+    return _attention_fwd(q, k, v, positions, window, scale, k_pos)[0]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -285,19 +290,21 @@ class FlashAttention(torch.autograd.Function):
     plain autograd would keep every block's fp32 scores.  Plain PyTorch,
     as the reference's is plain jnp: neither package trains on a kernel.
 
-    ``FlashAttention.apply(q, k, v, positions, window, scale=None)``."""
+    ``FlashAttention.apply(q, k, v, positions, window, scale=None,
+    k_pos=None)``; ``k_pos`` as in :func:`prefill_attention`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, positions, window, scale=None):
-        out, m, l = _attention_fwd(q, k, v, positions, window, scale)
-        ctx.save_for_backward(q, k, v, positions, out, m, l)
+    def forward(ctx, q, k, v, positions, window, scale=None, k_pos=None):
+        k_pos = positions if k_pos is None else k_pos
+        out, m, l = _attention_fwd(q, k, v, positions, window, scale, k_pos)
+        ctx.save_for_backward(q, k, v, positions, k_pos, out, m, l)
         ctx.window = window
         ctx.scale = _scale(q, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, positions, out, m, l = ctx.saved_tensors
+        q, k, v, positions, k_pos, out, m, l = ctx.saved_tensors
         s, scale = q.shape[1], ctx.scale
         qf = (q * scale).float()
         kf, vf = k.float(), v.float()
@@ -309,7 +316,7 @@ class FlashAttention(torch.autograd.Function):
         dv = torch.zeros(vf.shape, dtype=torch.float32, device=v.device)
         for q0 in range(0, s, _BLOCK_Q):
             blk = slice(q0, q0 + _BLOCK_Q)
-            sc = _masked_scores(qf[:, blk], kf, positions[blk], positions, ctx.window)
+            sc = _masked_scores(qf[:, blk], kf, positions[blk], k_pos, ctx.window)
             p = torch.exp(sc - m[:, blk, ..., None]) / lsafe[:, blk, ..., None]
             dv += torch.einsum("bqkgs,bqkgd->bskd", p, do[:, blk])
             dp = torch.einsum("bqkgd,bskd->bqkgs", do[:, blk], vf)
@@ -317,7 +324,7 @@ class FlashAttention(torch.autograd.Function):
             dq[:, blk] = torch.einsum("bqkgs,bskd->bqkgd", ds, kf)
             dk += torch.einsum("bqkgs,bqkgd->bskd", ds, qf[:, blk])
         return ((dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 # ============================================================== standard GQA
@@ -328,7 +335,9 @@ def attn_apply(
     positions: torch.Tensor,  # (S,) shared, or (B, 1) per sequence at decode
     cache: dict | None = None,
     *,
+    use_rope: bool = True,
     window: int | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
     rows=None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
@@ -340,7 +349,14 @@ def attn_apply(
     given with S == 1: decode — write this step, then attend over the
     cache; ``rows`` (device tensor) maps the compacted sub-batch onto cache
     rows and ``use_kernels`` sends the attention to the Hopper
-    ``flash_decode`` kernel instead of its plain version."""
+    ``flash_decode`` kernel instead of its plain version.
+
+    ``use_rope=False``: no rotation (Whisper's absolute positions are
+    added to the embeddings instead).  ``kv_override`` (cache None): the
+    precomputed encoder (K, V), each (B, S_enc, Kh, D): cross-attention,
+    the queries at position S_enc over keys at 0..S_enc-1 (every frame
+    visible, as the reference masks it), no cache write.  Plain PyTorch:
+    the reference has no kernel for it."""
     b, s, _ = x.shape
     kh, hd = cfg.num_kv_heads, cfg.head_dim
     g = cfg.num_heads // kh
@@ -348,18 +364,29 @@ def attn_apply(
     dtype = x.dtype
 
     q = dense(params["wq"], x, dtype).reshape(b, s, kh * g, hd)
-    k = dense(params["wk"], x, dtype).reshape(b, s, kh, hd)
-    v = dense(params["wv"], x, dtype).reshape(b, s, kh, hd)
+    if kv_override is None:
+        k = dense(params["wk"], x, dtype).reshape(b, s, kh, hd)
+        v = dense(params["wv"], x, dtype).reshape(b, s, kh, hd)
+    else:
+        k, v = kv_override
     if cfg.use_qk_norm:
         # Qwen3: each head normalized over head_dim before RoPE, so the
         # cache holds normalized, rotated keys (prefill and decode alike).
         q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = rmsnorm(params["k_norm"], k)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
     qg = q.reshape(b, s, kh, g, hd)
 
-    if cache is not None and s > 1:
+    if kv_override is not None:
+        s_enc = k.shape[1]
+        k_pos = torch.arange(s_enc, dtype=torch.int32, device=x.device)
+        q_pos = torch.full((s,), s_enc, dtype=torch.int32, device=x.device)
+        out = FlashAttention.apply(qg, k, v, q_pos, 0, None, k_pos)
+    elif cache is not None and s > 1:
         if rows is None:
             _cache_prefill(cache, {"k": k, "v": v})
         else:

@@ -1,4 +1,5 @@
-"""Primitive layers: dense, norms, RoPE, the SwiGLU MLP, embeddings.
+"""Primitive layers: dense, norms, RoPE, sinusoidal positions, the SwiGLU
+and GELU MLPs, embeddings.
 
 Counterparts of ``repro.models.layers``.  Functions on tensors: parameters
 are kept in fp32 and cast to the compute dtype at use; norm reductions stay
@@ -10,6 +11,10 @@ result without paying the cast at every call.
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 __all__ = [
@@ -21,7 +26,10 @@ __all__ = [
     "norm_init",
     "rope_frequencies",
     "apply_rope",
+    "sinusoidal_positions",
+    "sinusoidal_embed",
     "silu",
+    "gelu",
     "mlp_apply",
     "embed",
 ]
@@ -65,7 +73,7 @@ def norm_init(norm_type: str, d: int, device, lead: tuple[int, ...] = ()) -> dic
         return {"scale": torch.ones((*lead, d), device=device)}
     if norm_type == "nonparametric_ln":
         return {}
-    raise NotImplementedError(f"the port has no {norm_type!r} norm yet")
+    raise ValueError(norm_type)
 
 
 def norm_apply(norm_type: str, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +81,7 @@ def norm_apply(norm_type: str, params: dict, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(params, x)
     if norm_type == "nonparametric_ln":
         return nonparametric_ln(x)
-    raise NotImplementedError(f"the port has no {norm_type!r} norm yet")
+    raise ValueError(norm_type)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -99,11 +107,52 @@ def apply_rope(
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal table (seq_len, d_model): computed in
+    numpy float64 and cast to fp32, as the reference does (prefill and the
+    encoder add it)."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * dim / d_model)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
+def sinusoidal_embed(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoidal embedding at positions held on the device, (...,
+    d_model) in fp32 math (decode adds it).  Not bitwise the float64 table
+    of :func:`sinusoidal_positions` at the same position, in either
+    package."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=positions.device)
+    angle = positions.float()[..., None] / torch.pow(10_000.0, 2 * dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * (1 / (1 + exp(-x)))`` op by op in x's dtype — the reference's
     ``jax.nn.silu`` lowering, which rounds after every op in bf16
     (``F.silu`` rounds once and differs in about a third of bf16 outputs)."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (numpy's ``astype`` of a constant)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form, op by op in x's dtype with its
+    constants rounded to that dtype first (``x * (0.5 * (1 + tanh(c * (x +
+    k * x**3))))``, c = sqrt(2 / pi), k = 0.044715), as the reference's
+    lowering rounds after every op.  Over the 65,280 finite bf16 inputs it
+    equals the reference's result on all but 508, where an input or an
+    output is at most 2^-126 (XLA's CPU flushes subnormals to zero) and
+    the two differ by at most 2^-126; ``F.gelu(approximate="tanh")``,
+    which rounds once, differs on 1,518."""
+    c = _rounded(math.sqrt(2 / math.pi), x.dtype)
+    k = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
 
 
 def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
@@ -112,8 +161,10 @@ def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         g = dense(params["w_gate"], x, dtype)
         u = dense(params["w_up"], x, dtype)
         return dense(params["w_down"], silu(g) * u, dtype)
-    raise NotImplementedError(
-        f"the port has no {mlp_type!r} MLP yet (ROADMAP queue 1: Whisper)")
+    if mlp_type == "gelu":
+        u = dense(params["w_up"], x, dtype)
+        return dense(params["w_down"], gelu(u), dtype)
+    raise ValueError(mlp_type)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,

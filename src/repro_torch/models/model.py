@@ -1,7 +1,20 @@
 """BranchyModel for the dense GQA, routed-expert (``moe``: Qwen3-30B-A3B;
-DeepSeek-V3's MLA trunk of a dense stack then an MoE stack), vision-language (``vlm``: InternVL2's language trunk), Mamba2 (``ssm``) and
-Zamba2 (``hybrid``) trunks: backbone + tied side branches, with prefill /
-decode entry points — counterpart of ``repro.models.model``.
+DeepSeek-V3's MLA trunk of a dense stack then an MoE stack), vision-language (``vlm``: InternVL2's language trunk), Mamba2 (``ssm``),
+Zamba2 (``hybrid``) and encoder-decoder (``audio``: Whisper) trunks:
+backbone + tied side branches, with prefill / decode entry points —
+counterpart of ``repro.models.model``.
+
+An ``audio`` trunk is Whisper's decoder: GQA blocks without RoPE, each
+with a cross-attention block over the encoder's output, and a GELU MLP;
+sinusoidal absolute positions are added to the token embeddings (the
+float64 table at prefill, fp32 device math at decode, as in the
+reference).  The encoder (``params["encoder"]``, ``params["enc_norm"]``)
+runs once per batch over precomputed frame embeddings (the conv frontend
+is a stub in the reference too) at admission, and every decoder layer's
+cross K/V is kept beside the self-attention rings (``caches["cross_kv"]``),
+read, never written, by decode.  The reference's encoder blocks mask
+causally although Whisper's attend both ways (its ``causal=False`` only
+drops the sliding window); the port does the same.
 
 A ``vlm`` trunk is the dense GQA stack; its prompts start with
 ``num_patches`` precomputed patch embeddings (the vision frontend is a stub
@@ -43,7 +56,8 @@ Caches (full-batch resident, updated in place):
      "shared_attn": {"self": KV ring with a leading (n_sites,) axis} (hybrid),
      "dense_blocks", "blocks": {"self": {"ckv": (L, B, C, kv_rank),
                          "k_rope": (L, B, C, rope_dim), "pos", "length"}}
-                                                            (MLA)}
+                                                            (MLA),
+     "cross_kv": a tuple (k, v), each (L, B, S_enc, Kh, D)  (audio)}
 """
 
 from __future__ import annotations
@@ -55,7 +69,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.calibration import normalized_entropy
 from repro_torch.kernels.ops import resolve_device, resolve_use_kernels
-from repro_torch.models.layers import dense, embed, norm_apply, norm_init
+from repro_torch.models.layers import (
+    dense,
+    embed,
+    norm_apply,
+    norm_init,
+    sinusoidal_embed,
+    sinusoidal_positions,
+)
 from repro_torch.models.transformer import (
     BlockKind,
     block_apply,
@@ -71,10 +92,12 @@ from repro_torch.models.transformer import (
 __all__ = [
     "branch_logits_per_head",
     "branch_logits_stacked",
+    "compute_cross_kv",
     "compute_dtype",
     "compute_params",
     "decode_step",
     "embed_decode",
+    "encode_audio",
     "forward_train",
     "hybrid_sites",
     "init_caches",
@@ -110,9 +133,11 @@ def trunk_layout(cfg: ModelConfig) -> list[tuple[str, BlockKind, int]]:
         return out
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("blocks", BlockKind("mamba", "none"), cfg.num_layers)]
-    raise NotImplementedError(
-        f"the port runs dense, vlm, moe, ssm and hybrid trunks, not "
-        f"{cfg.arch_type!r} (ROADMAP queue 1: Whisper)")
+    if cfg.arch_type == "audio":
+        # The decoder trunk only; the encoder is a stack of its own.
+        return [("blocks", BlockKind("gqa", "dense", cross_attention=True,
+                                     use_rope=False), cfg.num_layers)]
+    raise ValueError(cfg.arch_type)
 
 
 def hybrid_sites(cfg: ModelConfig) -> tuple[int, ...]:
@@ -123,6 +148,7 @@ def hybrid_sites(cfg: ModelConfig) -> tuple[int, ...]:
 
 
 _SHARED_ATTN_KIND = BlockKind("gqa", "dense")
+_ENC_KIND = BlockKind("gqa", "dense", causal=False, use_rope=False)
 
 
 def _mtp_kind(cfg: ModelConfig) -> BlockKind:
@@ -172,6 +198,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = normal(d, v, std=0.02)
     if cfg.branch_layers:
         params["branches"] = norm((len(cfg.branch_layers),))
+    if cfg.arch_type == "audio":
+        params["encoder"] = stack_init(cfg, _ENC_KIND, cfg.num_encoder_layers,
+                                       generator, device, pd)
+        params["enc_norm"] = norm()
     if cfg.use_mtp:
         params["mtp_block"] = layer_slice(
             stack_init(cfg, _mtp_kind(cfg), 1, generator, device, pd), 0)
@@ -213,6 +243,11 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
     if sites:
         caches["shared_attn"] = stacked(init_block_cache(
             batch, cap, cfg, _SHARED_ATTN_KIND, dtype, device), len(sites))
+    if cfg.arch_type == "audio":
+        shape = (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        caches["cross_kv"] = (torch.zeros(shape, dtype=dtype, device=device),
+                              torch.zeros(shape, dtype=dtype, device=device))
     return caches
 
 
@@ -230,6 +265,7 @@ def run_trunk(
     rows=None,
     use_kernels: bool = False,
     remat: bool = False,
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor | float,
            dict[int, torch.Tensor]]:
     """Run trunk layers [lo, hi), segmenting at the ``collect`` layers,
@@ -244,7 +280,9 @@ def run_trunk(
     out-of-bounds sentinels; prefill: a host-side plan).  ``remat``: each
     trunk layer is recomputed in the backward pass (the shared block is
     not, as in the reference).  ``moe_dispatch``: the MoE blocks' dispatch
-    mode (:func:`repro_torch.models.moe.moe_apply`)."""
+    mode (:func:`repro_torch.models.moe.moe_apply`).  ``cross_kv``: the
+    decoder layers' stacked encoder (K, V) (Whisper); by default the
+    caches' ``cross_kv``, when they hold one."""
     stacks, acc = [], 0  # (param key, kind, first layer, end)
     for name, kind, n in trunk_layout(cfg):
         stacks.append((name, kind, acc, acc + n))
@@ -257,6 +295,11 @@ def run_trunk(
     # Each stack's layers in [lo, hi), unbound once, keyed relative to it.
     layers = {name: unstack(params[name], max(lo, s_lo) - s_lo, min(hi, s_hi) - s_lo)
               for name, _, s_lo, s_hi in stacks if s_lo < hi and lo < s_hi}
+    if cross_kv is None and caches is not None:
+        cross_kv = caches.get("cross_kv")
+    cross = None
+    if cross_kv is not None:  # one decoder stack: its layers are the trunk's
+        cross = dict(zip(range(lo, hi), zip(*(t[lo:hi].unbind() for t in cross_kv))))
     collected: dict[int, torch.Tensor] = {}
     aux = 0.0
     start = lo
@@ -266,8 +309,9 @@ def run_trunk(
             h, a = run_stack(
                 layers[name], h, cfg, kind, positions,
                 caches[name] if caches is not None else None,
-                lo=start - s_lo, hi=stop - s_lo, moe_dispatch=moe_dispatch,
-                rows=rows, use_kernels=use_kernels, remat=remat,
+                lo=start - s_lo, hi=stop - s_lo, cross=cross,
+                moe_dispatch=moe_dispatch, rows=rows, use_kernels=use_kernels,
+                remat=remat,
             )
             aux = aux + a
         if stop in sites:
@@ -344,6 +388,7 @@ def prefill(
     caches: dict,
     *,
     patch_embeds: torch.Tensor | None = None,  # (B, num_patches, d): vlm
+    frame_embeds: torch.Tensor | None = None,  # (B, S_enc, d): audio
     moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
@@ -351,16 +396,28 @@ def prefill(
     """Process whole prompts; returns (last-position logits (B, 1, V),
     caches).  A ``vlm`` prompt is its ``patch_embeds`` followed by its
     tokens (the reference's ``inputs["patch_embeds"]``), so its cache
-    holds ``num_patches + S`` positions.  ``rows`` (continuous-batching
-    admission, a host-side plan): prompt row i prefills cache row
-    ``rows[i]`` in place, ending exactly as a fresh solo prefill; sentinel
-    rows (>= B) drop their writes and the step counter is untouched.
+    holds ``num_patches + S`` positions.  An ``audio`` prompt's
+    ``frame_embeds`` run through the encoder, and every decoder layer's
+    cross K/V is written into ``caches["cross_kv"]`` in place.  ``rows``
+    (continuous-batching admission, a host-side plan): prompt row i
+    prefills cache row ``rows[i]`` in place, ending exactly as a fresh
+    solo prefill; sentinel rows (>= B) drop their writes and the step
+    counter is untouched (not for ``audio``, as in the reference).
     ``use_kernels``: the admission scan of a Mamba2 layer runs in the
     Hopper ``ssd_scan`` kernel."""
+    if rows is not None and cfg.arch_type == "audio":
+        raise NotImplementedError(
+            "row-targeted prefill does not cover encoder cross-KV caches")
     inputs = {"tokens": tokens}
     if patch_embeds is not None:
         inputs["patch_embeds"] = patch_embeds
     h, positions = _embed_inputs(params, inputs, cfg)
+    if cfg.arch_type == "audio":
+        if frame_embeds is None:
+            raise ValueError("an audio prompt needs its frame_embeds")
+        enc_out = encode_audio(params, frame_embeds, cfg)
+        for buf, t in zip(caches["cross_kv"], compute_cross_kv(params, enc_out, cfg)):
+            buf.copy_(t)
     h2, caches, _, _ = run_trunk(params, h, cfg, positions, caches,
                                  moe_dispatch=moe_dispatch, rows=rows,
                                  use_kernels=use_kernels)
@@ -373,9 +430,15 @@ def prefill(
 def embed_decode(params: dict, token: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Embed one decode-step token (B, 1) — the entry of the tier holding
-    trunk layer 1.  ``positions`` is unused by the RoPE trunk (kept for the
-    reference's signature)."""
-    return embed(params["embed"], token, compute_dtype(cfg))
+    trunk layer 1.  ``positions`` (the shared (1,) step position, or (B, 1)
+    per sequence) is read only by the ``audio`` trunk, which adds the
+    sinusoidal embedding at it; a RoPE trunk rotates in attention."""
+    dtype = compute_dtype(cfg)
+    h = embed(params["embed"], token, dtype)
+    if cfg.arch_type == "audio":
+        emb = sinusoidal_embed(positions, cfg.d_model).to(dtype)
+        h = h + (emb if positions.dim() == 2 else emb[None])
+    return h
 
 
 def decode_step(
@@ -434,23 +497,50 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-_NO_FRONTEND = "the port has no {} yet (ROADMAP queue 1: other trunks)"
-
-
 def _embed_inputs(params: dict, inputs: dict,
                   cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(h (B, S, d), positions (S,)): the token embeddings, after the
     precomputed ``patch_embeds`` (B, num_patches, d) under the vision
-    frontend (cast to the compute dtype, as the reference does)."""
-    if cfg.frontend not in ("none", "vision") or cfg.arch_type == "audio":
-        raise NotImplementedError(_NO_FRONTEND.format(f"{cfg.frontend!r} frontend"))
+    frontend (cast to the compute dtype, as the reference does), plus the
+    sinusoidal table on an ``audio`` trunk (Whisper's decoder).  Any other
+    frontend embeds the tokens alone, as the reference does."""
     dtype = compute_dtype(cfg)
     h = embed(params["embed"], inputs["tokens"], dtype)
     if cfg.frontend == "vision":
         if "patch_embeds" not in inputs:
             raise ValueError("a vision-frontend prompt needs its patch_embeds")
         h = torch.cat([inputs["patch_embeds"].to(dtype), h], dim=1)
-    return h, torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    s = h.shape[1]
+    if cfg.arch_type == "audio":
+        h = h + sinusoidal_positions(s, cfg.d_model, h.device).to(dtype)[None]
+    return h, torch.arange(s, dtype=torch.int32, device=h.device)
+
+
+def encode_audio(params: dict, frame_embeds: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Whisper's encoder over (stubbed) conv-frontend frame embeddings (B,
+    S_enc, d): the sinusoidal table added, the encoder stack (causally
+    masked, as the reference's is), then its final norm."""
+    dtype = compute_dtype(cfg)
+    h = frame_embeds.to(dtype)
+    s = h.shape[1]
+    h = h + sinusoidal_positions(s, cfg.d_model, h.device).to(dtype)[None]
+    pos = torch.arange(s, dtype=torch.int32, device=h.device)
+    n = cfg.num_encoder_layers
+    h, _ = run_stack(unstack(params["encoder"], 0, n), h, cfg, _ENC_KIND, pos,
+                     lo=0, hi=n)
+    return norm_apply(cfg.norm_type, params["enc_norm"], h)
+
+
+def compute_cross_kv(params: dict, enc_out: torch.Tensor,
+                     cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross (K, V) of the encoder's output, each
+    stacked (L, B, S_enc, Kh, D)."""
+    b, s, _ = enc_out.shape
+    shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
+    x = enc_out.reshape(1, b * s, -1)
+    xattn = params["blocks"]["xattn"]
+    return tuple(dense(xattn[w], x, enc_out.dtype).reshape(shape) for w in ("wk", "wv"))
 
 
 def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -460,9 +550,10 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     x the summed router aux loss of the MoE blocks (zero for a trunk
     without experts), + 0.3 x the multi-token-prediction CE under
     ``use_mtp`` (reported as ``branch_losses["mtp"]``).  ``batch``: ``tokens`` and ``labels`` (B, S),
-    optional ``mask``, and ``patch_embeds`` under the vision frontend,
-    whose positions' logits every head drops; token t predicts label
-    t + 1.
+    optional ``mask``, ``patch_embeds`` under the vision frontend, whose
+    positions' logits every head drops, and ``frame_embeds`` for an
+    ``audio`` trunk (the encoder runs without remat, as the reference's);
+    token t predicts label t + 1.
 
     Each head's loss runs under ``recomputed``: otherwise the (B, S, V)
     logits of every head would be saved for the backward pass in fp32.
@@ -470,9 +561,14 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
     serving runtime prices them the same way); the backward pass's
     recompute materializes all K heads' logits at once."""
     h, positions = _embed_inputs(params, batch, cfg)
+    cross = None
+    if cfg.arch_type == "audio":
+        cross = compute_cross_kv(params, encode_audio(params, batch["frame_embeds"], cfg),
+                                 cfg)
     h2, _, aux, collected = run_trunk(params, h, cfg, positions,
                                       collect=cfg.branch_layers,
-                                      moe_dispatch=moe_dispatch, remat=cfg.remat)
+                                      moe_dispatch=moe_dispatch, remat=cfg.remat,
+                                      cross_kv=cross)
     labels = batch["labels"][:, 1:]
     mask = batch.get("mask")
     mask = None if mask is None else mask[:, 1:]

@@ -3,7 +3,10 @@
 and vlm trunks and Zamba2's shared attention block), ``BlockKind("gqa",
 "moe")`` (the routed-expert trunk of Qwen3-30B-A3B), ``BlockKind("mla",
 "dense")`` and ``BlockKind("mla", "moe")`` (DeepSeek-V3's two stacks) and
-``BlockKind("mamba", "none")`` (the Mamba2 trunk).
+``BlockKind("mamba", "none")`` (the Mamba2 trunk), and Whisper's two
+GQA kinds: its decoder block (``cross_attention=True``: self-attention,
+then cross-attention over the encoder frames, then a GELU MLP) and its
+encoder block (``causal=False``).  Both run without RoPE.
 
 Parameters keep the reference's stacked layout: every leaf of a stack
 carries a leading ``(n_layers,)`` axis.  A Python loop over the layers
@@ -39,20 +42,28 @@ __all__ = [
     "unstack",
 ]
 
-_PORTED = {("gqa", "dense"), ("gqa", "moe"), ("mla", "dense"), ("mla", "moe"),
-           ("mamba", "none")}
+#: (mixer, mlp, cross_attention, causal) of every block kind the port runs.
+_PORTED = {("gqa", "dense", False, True), ("gqa", "moe", False, True),
+           ("mla", "dense", False, True), ("mla", "moe", False, True),
+           ("mamba", "none", False, True),
+           ("gqa", "dense", True, True),  # Whisper's decoder
+           ("gqa", "dense", False, False)}  # Whisper's encoder
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockKind:
     mixer: str  # "gqa" | "mla" | "mamba"
     mlp: str  # "dense" | "moe" | "none"
+    cross_attention: bool = False  # Whisper's decoder
+    causal: bool = True  # False for encoder blocks: no sliding window
     use_rope: bool = True
 
 
 def _check(kind: BlockKind) -> None:
-    if (kind.mixer, kind.mlp) not in _PORTED:
-        raise NotImplementedError(f"the port has no {kind} block yet")
+    """Every block kind of the reference's configs is ported; no config
+    makes any other."""
+    if (kind.mixer, kind.mlp, kind.cross_attention, kind.causal) not in _PORTED:
+        raise ValueError(f"no config has a {kind} block")
 
 
 def layer_slice(tree, i: int):
@@ -114,17 +125,21 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
     def norm():
         return cast_tree(norm_init(cfg.norm_type, d, device, (n,)), dtype)
 
-    p: dict = {"norm1": norm()}
-    if kind.mixer == "gqa":
-        p["attn"] = {
+    def attn():
+        a = {
             "wq": proj(d, cfg.q_dim),
             "wk": proj(d, cfg.kv_dim),
             "wv": proj(d, cfg.kv_dim),
             "wo": proj(cfg.q_dim, d),
         }
         if cfg.use_qk_norm:  # Qwen3: RMSNorm of each q and k head
-            p["attn"]["q_norm"] = {"scale": ones(cfg.head_dim)}
-            p["attn"]["k_norm"] = {"scale": ones(cfg.head_dim)}
+            a["q_norm"] = {"scale": ones(cfg.head_dim)}
+            a["k_norm"] = {"scale": ones(cfg.head_dim)}
+        return a
+
+    p: dict = {"norm1": norm()}
+    if kind.mixer == "gqa":
+        p["attn"] = attn()
     elif kind.mixer == "mla":
         h, hd, r_rope = cfg.num_heads, cfg.head_dim, cfg.mla_rope_dim
         r_q, r_kv = cfg.mla_q_rank, cfg.mla_kv_rank
@@ -140,13 +155,19 @@ def stack_init(cfg: ModelConfig, kind: BlockKind, n_layers: int,
         }
     else:
         p["mamba"] = cast_tree(mamba_mod.mamba_init(cfg, n, generator, device), dtype)
+    if kind.cross_attention:
+        p["norm_x"] = norm()
+        p["xattn"] = attn()
     if kind.mlp == "dense":
         p["norm2"] = norm()
-        p["mlp"] = {
-            "w_gate": proj(d, ff),
-            "w_up": proj(d, ff),
-            "w_down": proj(ff, d),
-        }
+        if cfg.mlp_type == "gelu":
+            p["mlp"] = {"w_up": proj(d, ff), "w_down": proj(ff, d)}
+        else:
+            p["mlp"] = {
+                "w_gate": proj(d, ff),
+                "w_up": proj(d, ff),
+                "w_down": proj(ff, d),
+            }
     elif kind.mlp == "moe":
         p["norm2"] = norm()
         p["moe"] = moe_mod.moe_init(cfg, n, generator, device, dtype)
@@ -174,22 +195,26 @@ def block_apply(
     positions: torch.Tensor,
     cache: dict | None = None,
     *,
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One pre-norm residual block: the mixer (attention, MLA or Mamba2),
-    then the MLP (dense or routed experts) if the block has one.
-    ``cache`` (this layer's view) is updated in place.  Returns (h, the
-    router's aux loss; None for a block without experts).  MLA has no
-    kernel (nor has the reference's): ``use_kernels`` leaves it as it is."""
+    then (a cross-attention block given this layer's encoder ``cross_kv``,
+    each (B, S_enc, Kh, D)) cross-attention, then the MLP (dense or routed
+    experts) if the block has one.  ``cache`` (this layer's view) is
+    updated in place.  Returns (h, the router's aux loss; None for a block
+    without experts).  MLA and cross-attention have no kernel (nor have
+    the reference's): ``use_kernels`` leaves them as they are."""
     _check(kind)
     hn = norm_apply(cfg.norm_type, params["norm1"], h)
     kernels = use_kernels and cache is not None
     if kind.mixer == "gqa":
         y, _ = attn_mod.attn_apply(
             params["attn"], hn, cfg, positions,
-            cache["self"] if cache else None, rows=rows, use_kernels=kernels,
+            cache["self"] if cache else None, use_rope=kind.use_rope,
+            window=None if kind.causal else 0, rows=rows, use_kernels=kernels,
         )
     elif kind.mixer == "mla":
         y, _ = attn_mod.mla_apply(
@@ -202,6 +227,16 @@ def block_apply(
             rows=rows if cache else None, use_kernels=kernels,
         )
     h = h + y
+    if kind.cross_attention and cross_kv is not None:
+        if rows is not None:
+            # A compacted sub-batch: the encoder rows follow the survivors.
+            # A sentinel row reads a clamped row; its output is discarded.
+            r = rows.long().clamp(max=cross_kv[0].shape[0] - 1)
+            cross_kv = (cross_kv[0][r], cross_kv[1][r])
+        hn = norm_apply(cfg.norm_type, params["norm_x"], h)
+        y, _ = attn_mod.attn_apply(params["xattn"], hn, cfg, positions,
+                                   use_rope=False, window=0, kv_override=cross_kv)
+        h = h + y
     aux = None
     if kind.mlp == "dense":
         hn = norm_apply(cfg.norm_type, params["norm2"], h)
@@ -223,6 +258,7 @@ def run_stack(
     *,
     lo: int,
     hi: int,
+    cross: dict | None = None,
     moe_dispatch: str = "einsum",
     rows=None,
     use_kernels: bool = False,
@@ -230,22 +266,27 @@ def run_stack(
 ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Run layers ``[lo, hi)`` of a stack (``layers``: :func:`unstack` of
     its params, holding at least those layers) over the residual stream;
-    stacked ``caches`` are updated in place.  ``remat`` (cache-free,
-    gradients on) recomputes each block in the backward pass instead of
-    saving its activations.  Returns (h, the summed router aux loss of the
-    MoE blocks; 0.0 when the stack has none)."""
+    stacked ``caches`` are updated in place.  ``cross``: each layer's
+    encoder (K, V) by layer index, as ``layers`` (Whisper's decoder).
+    ``remat`` (cache-free, gradients on) recomputes each block in the
+    backward pass instead of saving its activations.  Returns (h, the
+    summed router aux loss of the MoE blocks; 0.0 when the stack has
+    none)."""
     aux = 0.0
     for i in range(lo, hi):
+        ckv = cross[i] if cross is not None else None
         if remat and caches is None:
             h, a = recomputed(
-                lambda p, x: block_apply(p, x, cfg, kind, positions,
-                                         moe_dispatch=moe_dispatch),
-                layers[i], h)
+                lambda p, x, *kv: block_apply(p, x, cfg, kind, positions,
+                                              cross_kv=kv or None,
+                                              moe_dispatch=moe_dispatch),
+                layers[i], h, *(ckv or ()))
         else:
             h, a = block_apply(
                 layers[i], h, cfg, kind, positions,
                 layer_slice(caches, i) if caches is not None else None,
-                moe_dispatch=moe_dispatch, rows=rows, use_kernels=use_kernels,
+                cross_kv=ckv, moe_dispatch=moe_dispatch, rows=rows,
+                use_kernels=use_kernels,
             )
         if a is not None:
             aux = aux + a

@@ -94,18 +94,23 @@ class ServingEngine(ServesRequests):
     def start(self, inputs: dict) -> dict:
         """Prefill a batch of prompts (``inputs["tokens"]``, (B, S); under
         the vision frontend also ``inputs["patch_embeds"]``, (B,
-        num_patches, d), which come first); returns mutable serve state,
-        whose ``pos`` counts the patches too."""
+        num_patches, d), which come first; for an ``audio`` trunk
+        ``inputs["frame_embeds"]``, (B, S_enc, d), which the encoder reads);
+        returns mutable serve state, whose ``pos`` counts the patches too
+        (not the frames: they are no decoder position)."""
         tokens = self._exec._upload(inputs["tokens"], torch.int64)
         batch, prompt_len = tokens.shape
-        patches = None
+        extra = {}
         if self.cfg.frontend == "vision":
             prompt_len += self.cfg.num_patches
-            patches = torch.as_tensor(inputs["patch_embeds"], device=self.device)
+            extra["patch_embeds"] = torch.as_tensor(inputs["patch_embeds"],
+                                                    device=self.device)
+        if self.cfg.arch_type == "audio":
+            extra["frame_embeds"] = torch.as_tensor(inputs["frame_embeds"],
+                                                    device=self.device)
         caches = init_caches(self.cfg, batch, self.context_len,
                              device=self.device)
-        logits, caches = prefill(self.params, tokens, self.cfg, caches,
-                                 patch_embeds=patches,
+        logits, caches = prefill(self.params, tokens, self.cfg, caches, **extra,
                                  use_kernels=self._exec.use_kernels)
         return {
             "caches": caches,

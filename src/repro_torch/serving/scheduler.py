@@ -140,7 +140,9 @@ class RequestScheduler:
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         cfg = server.cfg
-        if cfg.frontend != "none":
+        if cfg.frontend != "none" or cfg.arch_type == "audio":
+            # As the reference: patch embeds and encoder states are per
+            # batch, not per slot.
             raise NotImplementedError("request scheduling covers text trunks")
         self.server = server
         self.executor = server.executor

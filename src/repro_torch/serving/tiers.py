@@ -392,8 +392,8 @@ class _Graph:
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, tuple)):
             yield from _leaves(v)
         else:
             yield v
@@ -801,7 +801,9 @@ class TierExecutor:
     def _stateful(self, caches):
         """(rings, Mamba2 states) of the caches: the stacked ``self`` dicts
         of the trunk's attention stacks (KV rings; MLA's latent rings) and
-        hybrid shared-attention sites, and of its Mamba2 stacks."""
+        hybrid shared-attention sites, and of its Mamba2 stacks.  Whisper's
+        ``cross_kv`` is not among them: decode reads it and never writes
+        it, so a re-run needs nothing of it restored."""
         rings, states = [], []
         for name, kind, _n in trunk_layout(self.cfg):
             (rings if kind.mixer in ("gqa", "mla") else states).append(
@@ -1275,7 +1277,9 @@ class TierExecutor:
         ``rows`` is a host-side plan; sentinel rows (>= batch) drop.  Runs
         eagerly, also under graphs (see the module doc).  Returns (caches,
         first decode input token per prompt row (n,), on the device — no
-        device-to-host sync)."""
+        device-to-host sync).  An ``audio`` trunk raises, as the
+        reference's row-targeted prefill does: its encoder output is per
+        batch."""
         toks = self._upload(tokens, torch.int64)
         logits, caches = prefill(self.params, toks, self.cfg, caches,
                                  rows=np.asarray(rows, np.int64),
@@ -1285,7 +1289,12 @@ class TierExecutor:
     def reset_rows(self, caches: dict, rows) -> dict:
         """Mark cache rows empty without moving K/V: ring slot validity
         (``pos``) -> -1, Mamba2 conv window and SSM state -> 0; sentinel
-        rows (>= batch) are ignored.  Runs eagerly."""
+        rows (>= batch) are ignored.  Runs eagerly.  An ``audio`` trunk
+        raises (see :meth:`prefill_rows`)."""
+        if self.cfg.arch_type == "audio":
+            raise NotImplementedError(
+                "reset_rows: row-targeted admission does not cover encoder "
+                "cross-KV caches")
         rows = np.asarray(rows, np.int64)
         rings, states = self._stateful(caches)
         for buf, key, fill in ([(kv, "pos", -1) for kv in rings]

@@ -4,8 +4,8 @@ through both packages on the CPU, on weights carried by
 checks (a train step, its gradients, a prefill then a decode step), each
 case of one test per check; InternVL2's vision path (patch embeddings
 before the tokens, the patch logits every training head drops, the
-engine's prompt length); the parameter draw that casts each leaf as it
-is drawn; and what the port still refuses.
+engine's prompt length); and the parameter draw that casts each leaf as
+it is drawn.  Whisper's own checks are in ``test_torch_whisper.py``.
 
 Smoke configs at fp32 compute and fp32 params, so that the two packages
 agree to the fp32 tolerances of ``test_torch_training.py``: losses 1e-5
@@ -59,7 +59,8 @@ def _t(a):
 def _inputs(cfg, batch=2, seq=16, seed=0):
     """The reference smoke test's inputs, drawn with numpy: a vision
     prompt is ``num_patches`` patch embeddings and ``seq - num_patches``
-    tokens, its labels the tokens."""
+    tokens, its labels the tokens; an audio prompt adds its
+    ``encoder_seq_len`` frame embeddings."""
     r = np.random.default_rng(seed)
     text = seq - (cfg.num_patches if cfg.frontend == "vision" else 0)
     toks = r.integers(0, cfg.vocab_size, (batch, text)).astype(np.int32)
@@ -67,6 +68,9 @@ def _inputs(cfg, batch=2, seq=16, seed=0):
     if cfg.frontend == "vision":
         out["patch_embeds"] = r.standard_normal(
             (batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.arch_type == "audio":
+        out["frame_embeds"] = r.standard_normal(
+            (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -118,9 +122,11 @@ def test_config_is_the_reference_s(arch):
 
 
 def test_arch_ids():
-    assert len(ARCH_IDS) == 9
-    assert {"phi3_medium_14b", "internvl2_76b", "qwen3_moe_30b_a3b",
-            "deepseek_v3_671b"} <= set(ARCH_IDS)
+    """All ten of the reference's configs."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+
+    assert len(ARCH_IDS) == 10
+    assert set(ARCH_IDS) == set(J_ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -168,9 +174,9 @@ def test_grads_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_then_decode_matches_reference(arch):
     """A prompt of 16 positions (a vision prompt: its patches, then its
-    tokens) prefilled into a 64-slot cache, then one decode step at
-    position 16: logits and branch entropies within 1e-4, lengths
-    exact."""
+    tokens; an audio prompt also its frames, which take no position)
+    prefilled into a 64-slot cache, then one decode step at position 16:
+    logits and branch entropies within 1e-4, lengths exact."""
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _weights(arch)
     nb = _inputs(jcfg)
@@ -179,9 +185,9 @@ def test_prefill_then_decode_matches_reference(arch):
     jl, jc = jax.jit(JM.prefill, static_argnums=2)(jp, jin, jcfg,
                                                    JM.init_caches(jcfg, batch, 64))
     tpc = TM.compute_params(tp, torch.float32)
-    patches = _t(nb["patch_embeds"]) if "patch_embeds" in nb else None
+    extra = {k: _t(nb[k]) for k in ("patch_embeds", "frame_embeds") if k in nb}
     tl, tc = TM.prefill(tpc, _t(nb["tokens"]).long(), tcfg,
-                        TM.init_caches(tcfg, batch, 64, device="cpu"), patch_embeds=patches)
+                        TM.init_caches(tcfg, batch, 64, device="cpu"), **extra)
     assert tl.shape == (batch, 1, tcfg.padded_vocab_size)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **FP32)
     assert int(tc["length"]) == int(jc["length"]) == seq
@@ -315,22 +321,3 @@ def test_init_params_bitwise_as_whole_stack_draws(arch):
     assert got.keys() == want.keys()
     for k, w in want.items():
         assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
-
-
-# ------------------------------------------------------------ still refused
-def _refused():
-    return {
-        "audio": ModelConfig(**dataclasses.asdict(j_smoke("whisper_medium"))),
-        "gelu": dataclasses.replace(get_smoke_config("phi3_mini_3_8b"), mlp_type="gelu"),
-    }
-
-
-@pytest.mark.parametrize("what", ["audio", "gelu"])
-def test_unported_features_raise(what):
-    """Whisper's audio trunk and the GELU MLP raise, naming the roadmap
-    item that ports them."""
-    cfg = _refused()[what]
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Whisper"):
-        params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        TM.forward_train(params, {"tokens": toks, "labels": toks}, cfg)

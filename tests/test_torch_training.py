@@ -177,16 +177,24 @@ def test_olmo_nonparametric_ln_and_tied_embedding():
     assert rows.sum() > 1  # the unembedding reaches every row, not only token 0
 
 
-@pytest.mark.parametrize("arch,kw", [("internvl2_76b", {"frontend": "audio"}),
-                                     ("whisper_medium", {})])
-def test_unported_frontends_raise(arch, kw):
-    """The audio frontend (on the vlm config too: the port runs its vision
-    frontend, ``test_torch_archs.py``) raises, naming the roadmap item
-    that ports it."""
-    cfg = ModelConfig(**dataclasses.asdict(dataclasses.replace(get_smoke_config(arch), **kw)))
-    batch = {k: torch.from_numpy(v) for k, v in TD.make_batch(cfg, 2, 8).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: other trunks"):
-        TM.forward_train({}, batch, cfg)
+def test_audio_frontend_on_a_vlm_trunk_runs_text_only():
+    """A vlm trunk under ``frontend="audio"`` embeds its tokens alone, as
+    the reference does (only an ``audio`` trunk runs the encoder): the
+    batch's frame embeddings are left unread, no position is dropped from
+    the loss, and the losses equal the reference's within 1e-5
+    relative."""
+    jcfg, tcfg = _cfgs("internvl2_76b", frontend="audio")
+    jp = jax.jit(JM.init_params, static_argnums=1)(jax.random.PRNGKey(4), jcfg)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    jb, tb = _batch(jcfg, b=2, s=8)
+    assert "frame_embeds" in tb and "patch_embeds" not in tb
+    jo = jax.jit(lambda p, b: JM.forward_train(p, b, jcfg))(jp, jb)
+    with torch.no_grad():
+        to = TM.forward_train(tp, tb, tcfg)
+        h, _ = TM._embed_inputs(tp, tb, tcfg)
+    assert h.shape == (2, 8, tcfg.d_model)
+    for name in ("loss", "main_loss"):
+        np.testing.assert_allclose(float(to[name]), float(jo[name]), rtol=1e-5)
 
 
 def test_remat_matches_no_remat():
