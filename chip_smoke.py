@@ -201,6 +201,26 @@ exit) if any phase fails:
      and idle share from three profiled steps; the 24 decoder layers
      profiled in measure mode (graph replays over caches holding the cross
      K/V) and the split solved once for 4g.
+  4e. sharded — mesh-sharded tiers on Qwen3-8B at full width and depth:
+     ``profile_decode_layers`` in analyze mode at 1, 2, 4 and 8 devices
+     (each t_c(d) == t_c(1) / d + the collective term) and in measure mode
+     at 4 (the plain path) beside 1 (the kernels), the K=2 cut solved with
+     the cloud as one card and as four over NVLink (and over a small
+     gamma / uplink grid); the sharding policy over all ten configs at
+     full size on duck-typed meshes (model 8; data 16 x model 16), a walk
+     over meta tensors: per-card param and cache bytes, replicated leaves,
+     every leaf sharded evenly or replicated, what fits 80 GB; then the
+     unsharded K=2 server at split 20 (eager, plain path) at 0.5 and at
+     step 0's median branch-9 entropy, freed, and the same server on a
+     (1, 2) mesh of two ranks that share this one card over gloo
+     (``RankPool``; the functional all-gather gloo's CUDA path does not
+     return from moves through host tensors), each rank drawing the same
+     params and sharding them, fed the baseline's tokens: tokens, exit
+     masks, shipped counts, logits within 8 bf16 ulps and entropies within
+     their rows' first-order bounds step by step, one host sync a step per
+     rank, no kernel launched, kernels and graphs resolved off, a
+     ``Shard``-placed leaf; the step ms of the two ranks (not a two-card
+     time) and each rank's bytes and peak.
 
   7. example — ``python -m repro_torch.examples.serve_partitioned`` on the
      card at its smoke size, in a process of its own; it must exit 0.
@@ -261,9 +281,12 @@ import gc
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3424,6 +3447,506 @@ def whisper_phase(torch, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ sharded tiers
+#: The sharded phase: Qwen3-8B's K=2 server at split 20 (edge branches 9
+#: and 18, as its end-to-end path), its 8 prompts of 128 tokens and 16 new
+#: tokens, on two ranks of one (1, 2) mesh that share the one card.
+SHARD_ARCH, SHARD_SPLIT, SHARD_RANKS = "qwen3_8b", 20, 2
+SHARD_DEVICES = (1, 2, 4, 8)  # the shard widths the analyze mode prices
+#: Logits (the main head's and the edge branches') are held to 8 bf16
+#: ulps at their scale (bf16_ulps); each branch entropy to a flat |dH|
+#: bound, about 4x the largest difference measured on the card (1.13e-4,
+#: with every sharded product in fp32), well inside the spread of the
+#: random weights' entropies, so that a wrong entropy fails it.
+SHARD_DH_TOL = 5e-4
+#: The duck-typed meshes of the policy walk: one 8-card node, and the
+#: reference's 16 x 16.
+SHARD_WALK = (("model 8", {"model": 8}), ("data 16 x model 16", {"data": 16, "model": 16}))
+CARD_BYTES = 80e9
+
+
+class FakeMesh:
+    """A mesh as the policy reads it: axis sizes only."""
+
+    def __init__(self, axes: dict):
+        self.shape = dict(axes)
+
+
+def shard_price_phase(torch, dev, cfg, wparams) -> dict:
+    """Part 1: what a sharded tier costs the solver, at full width.  The
+    analyze mode at each shard width against t_c(1) / d + collective, the
+    measure mode at d = 4 (the plain path, which a sharded segment runs)
+    beside d = 1 (the kernels), and the K=2 split solved with the cloud as
+    one card and as four over NVLink."""
+    import numpy as np
+
+    from repro_torch.core import build_cost_profile, solve_multitier
+    from repro_torch.core import profiler as TP
+    from repro_torch.models.model import init_caches, prefill
+
+    hw = TP.H100_SXM
+    an = {}
+    for d in SHARD_DEVICES:
+        t0 = time.perf_counter()
+        an[d] = TP.profile_decode_layers(cfg, wparams, SLOTS, CONTEXT, mode="analyze",
+                                         devices=d)
+        log(f"  analyze devices={d}: sum t_c {sum(c.time_s for c in an[d]) * 1e3:.4f} ms "
+            f"over {len(an[d])} layers (layer 1 {an[d][0].time_s * 1e6:.3f} us; "
+            f"{time.perf_counter() - t0:.1f} s)")
+    worst = 0.0
+    for d in SHARD_DEVICES[1:]:
+        for o, t in zip(an[1], an[d]):
+            want = o.time_s / d + hw.collective_time(o.output_bytes, d)
+            worst = max(worst, abs(t.time_s - want) / want)
+    check(worst <= 1e-12, f"analyze t_c(d) == t_c(1) / d + collective_time(alpha, d) for "
+          f"d in {SHARD_DEVICES[1:]} (worst relative gap {worst:.3g} <= 1e-12)")
+    meas = {}
+    for d in (1, 4):
+        t0 = time.perf_counter()
+        meas[d] = TP.profile_decode_layers(cfg, wparams, SLOTS, CONTEXT, mode="measure",
+                                           devices=d)
+        log(f"  measure devices={d} ({'kernels' if d == 1 else 'plain path, undivided'}, "
+            f"CUDA-graph replays): sum t_c {sum(c.time_s for c in meas[d]) * 1e3:.4f} ms, "
+            f"median layer {statistics.median(c.time_s for c in meas[d]) * 1e3:.5f} ms "
+            f"({time.perf_counter() - t0:.1f} s)")
+        check(all(c.time_s > 0 for c in meas[d]), f"measure devices={d}: every t_c > 0")
+    ici = hw.link_bw * 8.0
+    p_k = [0.25] * len(cfg.branch_layers)
+    prof = build_cost_profile(meas[1], cfg.branch_layers, p_k, "4g", gamma=GAMMA,
+                              raw_input_bytes=RAW_INPUT_BYTES)
+    from repro_torch.serving import PartitionedServer
+
+    toks = torch.as_tensor(np.stack(prompts(cfg)), device=dev).long()
+    solved = {}
+    for td in ((1, 1), (1, 4)):
+        srv = PartitionedServer(cfg, wparams, SHARD_SPLIT, device=dev, cost_profile=prof,
+                                tier_devices=td, ici_bps=ici, graphs=False)
+        plan = solve_multitier(prof.t_c, prof.alpha, prof.branch_exit_probs(),
+                               srv.tier_specs(prof), batch=SLOTS)
+        srv.set_split(plan.cut_after[0])
+        caches = init_caches(cfg, SLOTS, CONTEXT, device=dev)
+        lg, caches = prefill(srv.params, toks, cfg, caches)
+        rep, caches = srv.step(lg[:, 0].argmax(-1).to(torch.int32)[:, None], PROMPT, caches)
+        solved[str(td)] = dict(split=srv.split_layer, plan_s=plan.expected_time_s,
+                               est_latency_s=rep.est_latency_s)
+        log(f"  tier_devices {td} at ici {ici:.4g} bit/s (H100_SXM.link_bw x 8), 4g uplink, "
+            f"gamma {GAMMA:g}, p_k {p_k}: split {srv.split_layer}, plan "
+            f"{plan.expected_time_s * 1e3:.4f} ms, est_latency_s of a served step "
+            f"{rep.est_latency_s * 1e3:.4f} ms")
+        del srv, caches, lg
+    log(f"  the cut with the cloud as four cards: {solved['(1, 1)']['split']} -> "
+        f"{solved['(1, 4)']['split']}")
+    released(torch)
+    return dict(analyze_sum_ms={d: sum(c.time_s for c in an[d]) * 1e3 for d in an},
+                measure_sum_ms={d: sum(c.time_s for c in meas[d]) * 1e3 for d in meas},
+                worst_gap=worst, solved=solved)
+
+
+def policy_walk_phase(torch) -> dict:
+    """Part 2: the policy over every configuration at full published size,
+    a walk over meta tensors (nothing allocated): per card, the largest
+    param bytes in bf16 and the cache bytes at 8 slots x 4096; the leaves
+    left replicated; every leaf sharded or replicated by a rule (each
+    sharded dim divisible by its axes); and whether it fits one card at
+    model = 8."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.sharding.policy import (
+        ShardingPolicy,
+        cache_shapes,
+        param_shapes,
+        tree_paths,
+    )
+
+    held = torch.cuda.memory_allocated()
+    uneven: list = []
+
+    def per_card(spec, shape, axes) -> int:
+        n = math.prod(shape)
+        for d, e in enumerate(spec):
+            if e is None:
+                continue
+            size = math.prod(axes[a] for a in ((e,) if isinstance(e, str) else e))
+            if shape[d] % size:
+                uneven.append((tuple(shape), d, e))
+            n //= size
+        return n
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        params = list(tree_paths(param_shapes(cfg)))
+        caches = list(tree_paths(cache_shapes(cfg, SLOTS, CONTEXT)))
+        check(all(t.is_meta for _, t in params + caches), f"{arch}: the walk holds no memory")
+        row = {}
+        for label, axes in SHARD_WALK:
+            pol = ShardingPolicy(FakeMesh(axes), cfg,
+                                 tuple(a for a in ("pod", "data") if a in axes))
+            pspecs = [(pol.param_spec(p, t.shape), t) for p, t in params]
+            pbytes = sum(per_card(s, t.shape, axes) * 2 for s, t in pspecs)
+            cbytes = sum(per_card(pol.cache_spec(p, t.shape), t.shape, axes) * t.element_size()
+                         for p, t in caches)
+            repl = sum(all(e is None for e in s) for s, _ in pspecs)
+            row[label] = dict(param_gb=pbytes / 1e9, cache_gb=cbytes / 1e9, replicated=repl,
+                              leaves=len(pspecs), fits=pbytes + cbytes <= CARD_BYTES)
+        check(not uneven, f"{arch}: every leaf sharded evenly or replicated by a rule "
+              f"({len(params) + len(caches)} leaves on each mesh; uneven: {uneven})")
+        m8 = row["model 8"]
+        log(f"  {arch}: per card at model 8 {m8['param_gb']:.3f} GB params (bf16) + "
+            f"{m8['cache_gb']:.3f} GB cache, {m8['replicated']} of {m8['leaves']} leaves "
+            f"replicated, fits 80 GB: {m8['fits']}; at data 16 x model 16 "
+            f"{row['data 16 x model 16']['param_gb']:.3f} GB + "
+            f"{row['data 16 x model 16']['cache_gb']:.3f} GB, "
+            f"{row['data 16 x model 16']['replicated']} replicated")
+        out[arch] = row
+    check(torch.cuda.memory_allocated() == held, "the policy walk allocated no device memory")
+    check(not out["deepseek_v3_671b"]["model 8"]["fits"],
+          "DeepSeek-V3 does not fit 80 GB per card at model 8")
+    return out
+
+
+class BranchLogits:
+    """While active, ``tiers.branch_logits_stacked`` also keeps the last
+    stacked (K, B, V) branch logits it made, whole and on the host (a
+    sharded call gathers them, on every rank alike)."""
+
+    def __init__(self):
+        from repro_torch.serving import tiers
+
+        self.tiers, self.stacked, self.last = tiers, tiers.branch_logits_stacked, None
+
+    def __enter__(self):
+        from repro_torch.sharding.ctx import plain
+
+        def recording(params_, got, cfg_, layers):
+            ls, lg = self.stacked(params_, got, cfg_, layers)
+            if lg is not None:
+                self.last = plain(lg[:, :, 0]).float().cpu().numpy()
+            return ls, lg
+
+        self.tiers.branch_logits_stacked = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.tiers.branch_logits_stacked = self.stacked
+
+
+def shard_baseline(torch, dev, cfg, wparams, thr: float) -> dict:
+    """The unsharded K=2 server, eager on the plain path (what a sharded
+    segment runs), fed its own greedy tokens: its inputs, outputs, exit
+    masks, shipped counts, edge entropies, main and branch logits on the
+    host."""
+    import numpy as np
+
+    from repro_torch.models.model import init_caches, prefill
+    from repro_torch.serving import PartitionedServer
+
+    c = dataclasses.replace(cfg, exit_threshold=thr)
+    srv = PartitionedServer(c, wparams, SHARD_SPLIT, device=dev, graphs=False,
+                            use_kernels=False)
+    caches = init_caches(c, SLOTS, CONTEXT, device=dev)
+    toks = torch.as_tensor(np.stack(prompts(cfg)), device=dev).long()
+    lg, caches = prefill(srv.params, toks, c, caches)
+    tok = lg[:, 0].argmax(-1).to(torch.int32)
+    rec = dict(pre=lg[:, 0, :cfg.vocab_size].float().cpu().numpy(), inputs=[], tokens=[],
+               exited=[], take=[], shipped=[], ents=[], logits=[], branch=[], ms=[])
+    with BranchLogits() as bl:
+        for i in range(NEW_TOKENS):
+            rec["inputs"].append(tok.cpu().numpy())
+            t0 = time.perf_counter()
+            rep, caches = srv.step(tok[:, None], PROMPT + i, caches)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            _shard_record(rec, rep, cfg, bl.last)
+            tok = rep.tier_result.tokens_dev
+    del srv, caches
+    return rec
+
+
+def _shard_record(rec, rep, cfg, branch) -> None:
+    """One step's report; with ``branch`` (the step's (K, B, V) branch
+    logits) also the main head's and the branches' logits."""
+    rec["tokens"].append(rep.tokens.copy())
+    rec["exited"].append(rep.exited_on_edge.copy())
+    rec["take"].append({l: m.copy() for l, m in rep.branch_take.items()})
+    rec["shipped"].append(rep.shipped)
+    rec["ents"].append({l: e.copy() for l, e in rep.tier_result.branch_entropy.items()})
+    if branch is not None:
+        rec["logits"].append(rep.tier_result.last_logits[:, :cfg.vocab_size].float()
+                             .cpu().numpy())
+        rec["branch"].append(branch[:, :, :cfg.vocab_size])
+
+
+def shard_rank(cfg_fields: dict, thresholds, inputs, spill: str) -> dict:
+    """One rank of the two-rank server (run by ``RankPool``): the same seeded
+    params as the baseline's, sharded over a (1, 2) mesh with the full
+    copy dropped, then each threshold's 8 prompts and 16 steps fed the
+    baseline's inputs.  The collectives gloo's CUDA path does not carry
+    move through host tensors (``stage_through_host``).  Rank 0 writes its
+    logits under ``spill`` (one .npz a threshold; through the pipe they
+    took ~90 s on the card's host)."""
+    wall_in = time.time()
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch.mesh import make_local_mesh, stage_through_host
+    from repro_torch.models.model import init_caches, init_params, prefill
+    from repro_torch.serving import PartitionedServer
+    from repro_torch.sharding.ctx import plain
+    from repro_torch.sharding.policy import tree_paths
+
+    t_in = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    staged = stage_through_host()
+    kernel_ops.reset_launches()
+    cfg = ModelConfig(**cfg_fields)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    secs = {"draw": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    mesh = make_local_mesh()
+    first = PartitionedServer(cfg, params, SHARD_SPLIT, device=dev, mesh=mesh)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    secs["shard"] = time.perf_counter() - t0
+    leaves = [t for _, t in tree_paths(first.params)]
+    local_bytes = sum(t.to_local().numel() * t.element_size() for t in leaves)
+    shard_leaves = sum(any(p.is_shard() for p in t.placements) for t in leaves)
+    ex = first.executor
+    out = dict(rank=rank, staged=staged, params_gb=local_bytes / 1e9, secs=secs,
+               shard_leaves=shard_leaves, leaves=len(leaves), use_kernels=ex.use_kernels,
+               graphs=ex.graphs, mesh=str(mesh), runs=[])
+    toks = torch.as_tensor(np.stack(prompts(cfg)), device=dev).long()
+    for thr, forced in zip(thresholds, inputs):
+        c = dataclasses.replace(cfg, exit_threshold=thr)
+        srv = PartitionedServer(c, first.params, SHARD_SPLIT, device=dev, mesh=mesh)
+        caches = srv.executor.shard_caches(init_caches(c, SLOTS, CONTEXT, device=dev))
+        out["cache_gb"] = sum(t.to_local().numel() * t.element_size()
+                              for _, t in tree_paths(caches)) / 1e9
+        t0 = time.perf_counter()
+        with srv.executor.mesh_context():
+            lg, caches = prefill(srv.params, toks, c, caches)
+            pre = plain(lg[:, 0, :cfg.vocab_size]).float().cpu().numpy()
+        secs[f"prefill {thr:.6g}"] = time.perf_counter() - t0
+        rec = dict(pre=pre if rank == 0 else None, tokens=[], exited=[], take=[],
+                   shipped=[], ents=[], logits=[], branch=[], ms=[])
+        syncs0, retries0 = srv.executor.host_syncs, srv.executor.overflow_retries
+        for i, tok in enumerate(forced):
+            with BranchLogits() as bl:  # gathers on every rank: a collective
+                t0 = time.perf_counter()
+                rep, caches = srv.step(torch.as_tensor(tok[:, None], device=dev),
+                                       PROMPT + i, caches)
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            _shard_record(rec, rep, cfg, bl.last if rank == 0 else None)
+        rec["syncs"] = srv.executor.host_syncs - syncs0
+        rec["retries"] = srv.executor.overflow_retries - retries0
+        if rank == 0:
+            np.savez(os.path.join(spill, f"{len(out['runs'])}.npz"),
+                     logits=np.stack(rec.pop("logits")), branch=np.stack(rec.pop("branch")))
+        rec["buckets"] = [h.bucket for h in rep.compaction]
+        out["runs"].append(rec)
+        del srv, caches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = dict(kernel_ops.launches)
+    secs["total"] = time.perf_counter() - t_in
+    out["wall"] = (wall_in, time.time())
+    return out
+
+
+def shard_compare(torch, base: dict, got: dict, thr: float, label: str) -> dict:
+    """Step by step against the baseline: the main head's and the edge
+    branches' logits within 8 bf16 ulps of their scale; each branch
+    entropy within SHARD_DH_TOL; tokens equal on the rows whose top-2 gap
+    exceeds twice their measured |d logit| (no flip possible); in each run,
+    every branch's take the first entropy below the threshold, so that the
+    exit masks are a function of the entropies and equal exactly on the
+    rows whose every entropy sits on the same side of the threshold in
+    both runs; shipped counts equal where no mask differs.  Each check
+    fails when it covers nothing."""
+    import numpy as np
+
+    tol = bf16_ulps(torch.from_numpy(np.stack(base["logits"])))
+    btol = bf16_ulps(torch.from_numpy(np.stack(base["branch"])))
+    dpre = float(np.abs(got["pre"] - base["pre"]).max())
+    check(dpre <= tol, f"{label}: admission max |d logit| {dpre:.4g} <= {tol:.4g}")
+    worst_l = worst_b = worst_h = 0.0
+    checked_tok = checked_mask = checked_ship = same_tok = masks_differ = 0
+    layers = sorted(base["ents"][0])
+    below = np.float32(thr)  # the exit test: fp32 entropy < threshold
+
+    def gap(x):
+        top = np.sort(x, axis=-1)[..., -2:]
+        return top[..., 1] - top[..., 0]
+
+    for i in range(len(base["tokens"])):
+        # The main head's logits count on the rows both runs sent to the
+        # cloud: an exited row's are zero, or a padding row's of a bucket.
+        bl, gl = base["logits"][i], got["logits"][i]
+        dz = np.abs(gl - bl).max(axis=-1)
+        ran = ~base["exited"][i] & ~got["exited"][i]
+        worst_l = max(worst_l, float(dz[ran].max(initial=0.0)))
+        bb, gb = base["branch"][i], got["branch"][i]  # (K, B, V), K = len(layers)
+        dzb = np.abs(gb - bb).max(axis=-1)
+        worst_b = max(worst_b, float(dzb.max()))
+        # Each row's token comes from the head that decided it (the branch
+        # it exited at, or the main head) when both runs agree on the head;
+        # it cannot flip where that head's top-2 gap exceeds twice its
+        # measured |d logit|.
+        g, d = gap(bl), dz
+        agree = ran.copy()
+        for k, layer in enumerate(layers):
+            both = base["take"][i][layer] & got["take"][i][layer]
+            g, d = np.where(both, gap(bb[k]), g), np.where(both, dzb[k], d)
+            agree |= both
+        clear = agree & (g > 2 * d)
+        checked_tok += int(clear.sum())
+        same_tok += int((got["tokens"][i] == base["tokens"][i]).sum())
+        check(bool((got["tokens"][i] == base["tokens"][i])[clear].all()),
+              f"{label} step {i}: tokens equal on the {int(clear.sum())} rows that cannot "
+              f"flip ({got['tokens'][i].tolist()} vs {base['tokens'][i].tolist()})")
+        for name, run in (("baseline", base), ("sharded", got)):
+            taken = np.zeros(len(bl), bool)
+            for layer in layers:
+                want = (run["ents"][i][layer] < below) & ~taken
+                check(bool((run["take"][i][layer] == want).all()),
+                      f"{label} step {i}: the {name} run's branch {layer} takes the rows "
+                      "whose entropy is first below the threshold")
+                taken |= want
+            check(bool((run["exited"][i] == taken).all()),
+                  f"{label} step {i}: the {name} run's exits are its branches' takes")
+        same_side = np.ones(len(bl), bool)
+        for layer in layers:
+            e, ge = base["ents"][i][layer], got["ents"][i][layer]
+            worst_h = max(worst_h, float(np.abs(ge - e).max()))
+            same_side &= (e < below) == (ge < below)
+        checked_mask += int(same_side.sum())
+        same = got["exited"][i] == base["exited"][i]
+        masks_differ += int((~same).sum())
+        check(bool(same[same_side].all()), f"{label} step {i}: exit masks equal on the "
+              f"{int(same_side.sum())} rows whose entropies sit on the same side of the "
+              "threshold in both runs")
+        for layer, m in base["take"][i].items():
+            check(bool((got["take"][i][layer] == m)[same_side].all()),
+                  f"{label} step {i}: branch {layer}'s takes equal on those rows")
+        if same.all():
+            checked_ship += 1
+            check(got["shipped"][i] == base["shipped"][i],
+                  f"{label} step {i}: shipped {got['shipped'][i]} == {base['shipped'][i]}")
+    check(worst_l <= tol, f"{label}: main head max |d logit| {worst_l:.4g} <= {tol:.4g} "
+          "(8 bf16 ulps at the logits' scale; rows both runs sent to the cloud)")
+    check(worst_b <= btol, f"{label}: branch max |d logit| {worst_b:.4g} <= {btol:.4g}")
+    check(worst_h <= SHARD_DH_TOL, f"{label}: every branch |dH| {worst_h:.3g} <= "
+          f"{SHARD_DH_TOL:g}")
+    check(checked_tok > 0 and checked_mask > 0 and checked_ship > 0,
+          f"{label}: every check covered something (tokens on {checked_tok} rows, exit "
+          f"masks on {checked_mask} rows, shipped counts on {checked_ship} steps)")
+    return dict(max_dlogit=worst_l, logit_tol=tol, max_branch_dlogit=worst_b,
+                branch_tol=btol, max_dh=worst_h, dh_tol=SHARD_DH_TOL, dpre=dpre,
+                tokens_checked=checked_tok, tokens_equal=same_tok,
+                masks_checked=checked_mask, masks_differ=masks_differ,
+                shipped_checked=checked_ship,
+                exits=int(sum(e.sum() for e in base["exited"])),
+                shipped=[int(s) for s in base["shipped"]])
+
+
+def sharded_phase(torch, dev, smi: str) -> dict:
+    """Mesh-sharded tiers: the price, the policy walk, and a sharded K=2
+    Qwen3-8B served by two ranks that share this one card over gloo."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import RankPool
+    from repro_torch.models.model import init_params
+
+    log(f"sharded: {smi}")
+    released(torch)
+    cfg = get_config(SHARD_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wparams = init_params(cfg, gen, dev)
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads / "
+        f"{cfg.num_kv_heads} KV of {cfg.head_dim}, vocab {cfg.vocab_size}, params "
+        f"{cfg.param_dtype}, {SLOTS} slots x {CONTEXT}")
+    price = shard_price_phase(torch, dev, cfg, wparams)
+    stamp("sharded: the price of a sharded tier done")
+    walk = policy_walk_phase(torch)
+    stamp("sharded: the policy walk done")
+    base = {0.5: shard_baseline(torch, dev, cfg, wparams, 0.5)}
+    median = float(np.median(base[0.5]["ents"][0][cfg.branch_layers[0]]))
+    base[median] = shard_baseline(torch, dev, cfg, wparams, median)
+    del wparams
+    released(torch)
+    for thr, b in base.items():
+        log(f"  unsharded baseline at {thr:.6g} (eager, plain path): exits "
+            f"{int(sum(e.sum() for e in b['exited']))} of {SLOTS * NEW_TOKENS}, shipped "
+            f"{b['shipped']}, step ms median {statistics.median(b['ms'][1:]):.3f}")
+    stamp("sharded: baselines done; the ranks start")
+    t0 = time.perf_counter()
+    spill = tempfile.mkdtemp(prefix="sharded-")
+    try:
+        with RankPool(SHARD_RANKS, device="cuda", threads=4, timeout_s=300.0) as pool:
+            t1, w1 = time.perf_counter(), time.time()
+            ranks = pool.run(shard_rank, dataclasses.asdict(cfg), list(base),
+                             [b["inputs"] for b in base.values()], spill)
+            t2, w2 = time.perf_counter(), time.time()
+        for j, run in enumerate(ranks[0]["runs"]):
+            with np.load(os.path.join(spill, f"{j}.npz")) as z:
+                run["logits"], run["branch"] = list(z["logits"]), list(z["branch"])
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    log(f"  two ranks: {time.perf_counter() - t0:.1f} s from start to stop (start "
+        f"{t1 - t0:.1f} s, the runs {t2 - t1:.1f} s; on each rank, the call entered "
+        f"{[round(r['wall'][0] - w1, 1) for r in ranks]} s after it was sent, ran "
+        f"{[round(r['secs']['total'], 1) for r in ranks]} s after its imports, and "
+        f"returned {[round(w2 - r['wall'][1], 1) for r in ranks]} s before it was read)")
+    out = dict(price=price, walk=walk, thresholds=list(base), ranks=[], runs=[])
+    for r in ranks:
+        check(r["use_kernels"] is False and r["graphs"] is False,
+              f"rank {r['rank']}: the sharded executor resolved kernels and graphs off")
+        check(r["shard_leaves"] > 0, f"rank {r['rank']}: {r['shard_leaves']} of {r['leaves']} "
+              "param leaves Shard-placed")
+        check(not any(r["launches"].values()), f"rank {r['rank']}: no kernel launched on "
+              f"the sharded path ({r['launches']})")
+        for thr, run in zip(base, r["runs"]):
+            check(run["syncs"] == NEW_TOKENS + run["retries"],
+                  f"rank {r['rank']} at {thr:.6g}: {run['syncs']} host syncs for "
+                  f"{NEW_TOKENS} steps and {run['retries']} re-runs")
+        log(f"  rank {r['rank']} ({r['mesh']}): params {r['params_gb']:.3f} GB and KV "
+            f"{r['cache_gb']:.3f} GB on this rank, peak {r['peak_gb']:.3f} GB; collectives "
+            f"moved through the host: {list(r['staged']) or 'none'}; seconds "
+            f"{ {k: round(v, 2) for k, v in r['secs'].items()} }, first steps ms "
+            f"{[round(run['ms'][0], 1) for run in r['runs']]}")
+        out["ranks"].append({k: v for k, v in r.items() if k != "runs"})
+    for thr, run, b in zip(base, ranks[0]["runs"], base.values()):
+        for r in ranks[1:]:
+            other = r["runs"][list(base).index(thr)]
+            check(all((a == o).all() for a, o in zip(run["tokens"], other["tokens"])),
+                  f"at {thr:.6g}: every rank reports the same tokens")
+        cmp = shard_compare(torch, b, run, thr, f"sharded K=2 at {thr:.6g}")
+        ms = [statistics.median(r["runs"][list(base).index(thr)]["ms"][1:]) for r in ranks]
+        cmp.update(thr=thr, step_ms_by_rank=ms, buckets=run["buckets"],
+                   baseline_step_ms=statistics.median(b["ms"][1:]))
+        log(f"  at threshold {thr:.6g}: max |d logit| {cmp['max_dlogit']:.4g} (bound "
+            f"{cmp['logit_tol']:.4g}), branches {cmp['max_branch_dlogit']:.4g} (bound "
+            f"{cmp['branch_tol']:.4g}), max |dH| {cmp['max_dh']:.3g} (bound "
+            f"{cmp['dh_tol']:g}), admission |d logit| {cmp['dpre']:.4g}, tokens equal "
+            f"{cmp['tokens_equal']} / {SLOTS * NEW_TOKENS} ({cmp['tokens_checked']} that "
+            f"cannot flip, checked), exit masks differing {cmp['masks_differ']} of "
+            f"{SLOTS * NEW_TOKENS} ({cmp['masks_checked']} rows on the same side of the "
+            f"threshold in both runs, checked), shipped counts checked on "
+            f"{cmp['shipped_checked']} of {NEW_TOKENS} steps, exits {cmp['exits']}, "
+            f"last buckets {run['buckets']}; step ms (two ranks sharing one H100 over gloo, "
+            f"not a two-card time) {[round(m, 3) for m in ms]}, the unsharded eager "
+            f"baseline's {cmp['baseline_step_ms']:.3f} [{smi}]")
+        out["runs"].append(cmp)
+    return out
+
+
 def example_phase() -> dict:
     """``python -m repro_torch.examples.serve_partitioned`` on the card at
     its smoke size, in a process of its own: its own asserts (the breaker
@@ -4079,6 +4602,10 @@ def main() -> int:
         e2e.append(phase(torch, dev))
         phase_s[arch] = time.perf_counter() - t0
         stamp(f"{arch} done in {phase_s[arch]:.1f} s")
+    t0 = time.perf_counter()
+    sharded = sharded_phase(torch, dev, smi)
+    phase_s["sharded"] = time.perf_counter() - t0
+    stamp(f"sharded phase done in {phase_s['sharded']:.1f} s")
     example = example_phase()
     stamp("serve_partitioned example done")
     training = train_phase(torch, dev, smi)
@@ -4101,7 +4628,7 @@ def main() -> int:
           f"device_ms left out {len(SHORT_WINDOWS)} <= {MAX_SHORT_RUN} profiler windows "
           f"over the run (kernel, events kept, full): {SHORT_WINDOWS}")
     log(f"phase seconds: {json.dumps(phase_s)}; whole run {time.perf_counter() - t_start:.1f} s")
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, mla_layer=mla_layer, paths=e2e, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, mla_layer=mla_layer, paths=e2e, sharded=sharded, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

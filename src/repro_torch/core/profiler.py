@@ -142,6 +142,8 @@ def analyze_layer_costs(
     layer_fns: Sequence[tuple[str, Callable]],
     layer_inputs: Sequence,
     hardware: HardwareSpec = H100_SXM,
+    *,
+    devices: int = 1,
 ) -> list[LayerCost]:
     """Roofline-cost every layer of a chain from its aten ops.
 
@@ -149,7 +151,12 @@ def analyze_layer_costs(
     of them) to its output; it runs once, on ``layer_inputs[i]``, under the
     FLOP and byte counters.  Only PyTorch ops are seen: a callable that
     launches a ctypes kernel must be given in its plain lowering.
-    Sharded tiers wait for the port's mesh.
+
+    ``devices > 1`` prices a mesh-sharded tier: each layer's roofline time
+    divides by the shard width and gains the per-layer collective term
+    (``HardwareSpec.collective_time`` on the layer's output activation),
+    the same two terms ``TierSpec(devices=, ici_bps=)`` carries into
+    :func:`repro_torch.core.multitier.solve_multitier`.
     """
     out: list[LayerCost] = []
     for (name, fn), args in zip(layer_fns, layer_inputs):
@@ -160,7 +167,8 @@ def analyze_layer_costs(
         flops = float(flop_counter.get_total_flops())
         nbytes = float(byte_counter.bytes)
         ob = output_bytes(res)
-        t = hardware.roofline_time(flops, max(nbytes, ob))
+        t = hardware.roofline_time(flops, max(nbytes, ob), devices)
+        t += hardware.collective_time(ob, devices)
         out.append(LayerCost(name, flops, nbytes, ob, t))
     return out
 
@@ -401,17 +409,22 @@ def profile_decode_layers(
     kernel), running each layer once.  Either way the resulting ``t_c``
     feeds :class:`~repro_torch.core.types.CostProfile`.
 
-    ``devices > 1`` (a mesh-sharded tier) waits for the port's mesh and
-    raises."""
+    ``devices > 1`` prices the layers as a mesh-sharded tier runs them:
+    ``use_kernels`` resolves to the plain versions (a sharded segment takes
+    them), analyze mode rooflines over the shard width plus the per-layer
+    collective term (:func:`analyze_layer_costs`), and measure mode times
+    the plain path on this one device and does not divide, as the
+    reference's measure mode does."""
+    from repro_torch.kernels.ops import resolve_use_kernels
+
     if mode not in ("analyze", "measure"):
         raise ValueError(f"unknown profiling mode: {mode!r}")
     if devices > 1:
-        raise NotImplementedError(
-            "sharded decode profiles need the port's mesh, not ported yet")
+        use_kernels = resolve_use_kernels(use_kernels, None, sharded=True)
     if mode == "analyze":
         fns, inputs = decode_layer_fns(cfg, params, batch, context_len,
                                        use_kernels=False)
-        return analyze_layer_costs(fns, inputs, hardware)
+        return analyze_layer_costs(fns, inputs, hardware, devices=devices)
     fns, inputs = decode_layer_fns(cfg, params, batch, context_len,
                                    use_kernels=use_kernels)
     return measure_layer_times(fns, inputs, iters=iters, warmup=warmup)

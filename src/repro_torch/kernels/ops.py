@@ -122,12 +122,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def resolve_use_kernels(flag: bool | None, device) -> bool:
+def resolve_use_kernels(flag: bool | None, device, *, sharded: bool = False) -> bool:
     """The ``use_kernels`` tri-state for an entry point on ``device``:
     None = the kernels on a CUDA device, the plain versions on the CPU.
     The kernels are built for sm_90a only, so asking for them on anything
     but a CUDA sm_90 device — by True, or by None on another CUDA card —
-    raises; ``False`` is the one way to run the plain versions on a card."""
+    raises; ``False`` is the one way to run the plain versions on a card.
+
+    ``sharded=True`` (a mesh-sharded tier segment) always resolves to the
+    plain versions, as the reference does: the kernels are single-device
+    programs and must not see a mesh-global batch.  Handing them a sharded
+    operand would either fail or gather the whole sharded KV cache onto
+    one device."""
+    if sharded:
+        return False
     dev = torch.device(device)
     if flag is False or (flag is None and dev.type != "cuda"):
         return False

@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import flash_decode_ref
 from repro_torch.models.layers import apply_rope, dense, rmsnorm
+from repro_torch.sharding import ctx as shard_ctx
 
 __all__ = [
     "FlashAttention",
@@ -104,6 +105,8 @@ def _cache_write(cache: dict, new: dict, rows: torch.Tensor | None = None,
     (continuous batching).  A 1-D ``positions`` (or None) keeps the
     lock-step write at ``length % C`` recording ``length``.  ``rows``
     targets rows of the full-batch cache (sentinels drop)."""
+    if shard_ctx.is_dtensor(cache["pos"]):
+        return _cache_write_sharded(cache, new, rows, positions)
     c = cache["pos"].shape[1]
     b = next(iter(new.values())).shape[0]
     if positions is not None and positions.dim() == 2:
@@ -164,7 +167,12 @@ def _fresh_rows(new: dict, cap: int, dtypes: dict):
 def _cache_prefill(cache: dict, new: dict) -> dict:
     """Write a whole prompt (S tokens at positions 0..S-1) into every row
     of the cache in place (``new``: {leaf name: (B, S, ...)}); slots past
-    the prompt keep what they hold, as in the reference."""
+    the prompt keep what they hold, as in the reference.  A DTensor ring
+    (a sharded segment) is written on each rank's shard."""
+    if shard_ctx.is_dtensor(cache["pos"]):
+        _cache_prefill({k: shard_ctx.local(t) for k, t in cache.items()},
+                       {k: shard_ctx.like(v, cache[k]) for k, v in new.items()})
+        return cache
     first = next(iter(new.values()))
     s = first.shape[1]
     cap = cache["pos"].shape[1]
@@ -202,7 +210,18 @@ def _cache_prefill_rows(cache: dict, new: dict, rows) -> dict:
     cache that just prefilled prompt i (slots past the prompt reset to
     empty; ``new``: {leaf name: (n, S, ...)}).  ``rows`` is the host-side
     admission plan (:func:`plan_rows`).  Other rows and ``length`` are
-    untouched."""
+    untouched.  A DTensor ring (a sharded segment) is written on each
+    rank's shard; its batch must not be sharded."""
+    if shard_ctx.is_dtensor(cache["pos"]):
+        from torch.distributed.tensor import Shard
+
+        if any(isinstance(p, Shard) and p.dim == 0
+               for t in cache.values() for p in t.placements):
+            raise NotImplementedError(
+                "row-targeted admission into a ring whose batch is sharded")
+        _cache_prefill_rows({k: shard_ctx.local(t) for k, t in cache.items()},
+                            {k: shard_ctx.like(v, cache[k]) for k, v in new.items()}, rows)
+        return cache
     first = next(iter(new.values()))
     plan = plan_rows(rows, cache["pos"].shape[0], first.device)
     if plan is None:
@@ -215,6 +234,110 @@ def _cache_prefill_rows(cache: dict, new: dict, rows) -> dict:
         cache[key][tgt] = v
     cache["pos"][tgt] = fp
     return cache
+
+
+# ============================================= sharded rings (on each shard)
+def _cache_write_sharded(cache: dict, new: dict, rows, positions) -> dict:
+    """:func:`_cache_write` on a DTensor ring (a sharded tier segment).
+    DTensor has no in-place rule for a row-indexed write into a leaf whose
+    batch is sharded, so each leaf is written on this rank's shard: every
+    write is a row write (lock-step: all rows at ``length % C``), the new
+    values are whole over the written rows and take the leaf's shard of
+    its other dims, and rows outside the shard become sentinels."""
+    c = cache["pos"].shape[1]
+    b = next(iter(new.values())).shape[0]
+    length = shard_ctx.plain(cache["length"])
+    if positions is not None and positions.dim() == 2:
+        pos_vec = shard_ctx.plain(positions)[:, 0].to(torch.int32)
+    else:
+        pos_vec = length.to(torch.int32).expand(b)
+    slots = (pos_vec % c).long()
+    rows = (torch.arange(b, device=slots.device) if rows is None
+            else shard_ctx.plain(rows).long())
+    vals = {key: val[:, 0] for key, val in new.items()}
+    vals["pos"] = pos_vec
+    for key, val in vals.items():
+        buf, off = shard_ctx.local_rows(cache[key])
+        local = shard_ctx.to_layout_of(val, cache[key], 1)
+        r = rows - off
+        r = torch.where((r < 0) | (r >= buf.shape[0]), buf.shape[0], r)
+        _write_slots(buf, r, slots, local)
+    cache["length"] += 1
+    return cache
+
+
+def _local_heads(fn, q, k, v, *args, **kwargs):
+    """``fn(q, k, v, ...)`` of plain attention; DTensor operands (a sharded
+    segment) run it on this rank's heads, each rank a share of the kv
+    heads when the model axes divide them, else every head, and their
+    batch shard.  DTensor's rules cannot split an attention einsum whose
+    heads are sharded (it flattens them with the batch), so the call runs
+    on local tensors."""
+    if not shard_ctx.is_dtensor(q):
+        return fn(q, k, v, *args, **kwargs)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, kh = q.device_mesh, k.shape[2]
+    model = [i for i, n in enumerate(mesh.mesh_dim_names) if n == "model"]
+    split = kh % math.prod(mesh.size(i) for i in model) == 0
+    pl = [Shard(2) if i in model and split else
+          Shard(0) if i not in model and q.shape[0] % mesh.size(i) == 0 else Replicate()
+          for i in range(mesh.ndim)]
+    out = fn(*(t.redistribute(mesh, pl).to_local() for t in (q, k, v)), *args, **kwargs)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def _decode_sharded(qg: torch.Tensor, cache: dict, q_pos, rows, window: int) -> torch.Tensor:
+    """:func:`flash_decode_ref` on a DTensor ring (a sharded segment), on
+    each rank's shard, with the collectives explicit: DTensor's rules cannot
+    split the attention einsum over sharded heads.  ``qg`` (B, 1, K, G, D)
+    takes the ring's layout; a ring sharded over head_dim sums its partial
+    scores across those ranks; a ring sharded over the batch answers the
+    rows it holds, zero elsewhere, and the answers are summed across those
+    ranks.  Returns (B, 1, K*G*D), a DTensor sharded over the heads or
+    whole."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    k = cache["k"]
+    mesh = k.device_mesh
+    b, s, kh, g, d = qg.shape
+    ring = [p.dim % 4 if isinstance(p, Shard) else None for p in k.placements]
+    qpl = [Shard(2) if x == 2 else Shard(4) if x == 3 else Replicate() for x in ring]
+    if not shard_ctx.is_dtensor(qg):
+        qg = DTensor.from_local(qg, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    q = qg.redistribute(mesh, qpl).to_local()[:, 0].float() / math.sqrt(d)
+    k_loc, off = shard_ctx.local_rows(k)
+    v_loc = cache["v"].to_local()
+    k_pos = shard_ctx.plain(cache["pos"])
+    bc = k_pos.shape[0]
+    r = (torch.arange(b, device=q.device) if rows is None
+         else shard_ctx.plain(rows).long().clamp(0, bc - 1))
+    mine = (r >= off) & (r < off + k_loc.shape[0])
+    lr = torch.where(mine, r - off, 0)
+    kk, vv = k_loc[lr].float(), v_loc[lr].float()
+    q_pos = torch.as_tensor(shard_ctx.plain(q_pos), device=q.device).expand(b)[:, None]
+    sc = torch.einsum("bkgd,bckd->bkgc", q, kk)
+    for i, x in enumerate(ring):
+        if x == 3:  # head_dim shards: partial scores
+            dist.all_reduce(sc, group=mesh.get_group(i))
+    kp = k_pos[r]
+    valid = (kp >= 0) & (kp <= q_pos)
+    if window > 0:
+        valid = valid & (q_pos - kp < window)
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    o = torch.einsum("bkgc,bckd->bkgd", torch.softmax(sc, dim=-1), vv).to(qg.dtype)
+    for i, x in enumerate(ring):
+        if x == 0:  # batch shards: each row from the rank that holds it
+            o = torch.where(mine[:, None, None, None], o, 0)
+            dist.all_reduce(o, group=mesh.get_group(i))
+            mine = torch.ones_like(mine)
+    opl = [Shard(1) if x == 2 else Shard(3) if x == 3 else Replicate() for x in ring]
+    out = DTensor.from_local(o, mesh, opl, run_check=False)
+    if any(x == 3 for x in ring):  # head_dim shards: whole before the heads flatten
+        out = out.redistribute(mesh, [Replicate() if x == 3 else p
+                                      for x, p in zip(ring, opl)])
+    return out.reshape(b, s, kh * g * d)
 
 
 # ================================================== prefill attention (plain)
@@ -363,10 +486,10 @@ def attn_apply(
     window = cfg.sliding_window if window is None else window
     dtype = x.dtype
 
-    q = dense(params["wq"], x, dtype).reshape(b, s, kh * g, hd)
+    q = shard_ctx.split_dim(dense(params["wq"], x, dtype), -1, (kh * g, hd))
     if kv_override is None:
-        k = dense(params["wk"], x, dtype).reshape(b, s, kh, hd)
-        v = dense(params["wv"], x, dtype).reshape(b, s, kh, hd)
+        k = shard_ctx.split_dim(dense(params["wk"], x, dtype), -1, (kh, hd))
+        v = shard_ctx.split_dim(dense(params["wv"], x, dtype), -1, (kh, hd))
     else:
         k, v = kv_override
     if cfg.use_qk_norm:
@@ -379,7 +502,7 @@ def attn_apply(
         q = apply_rope(q, positions, cfg.rope_theta)
         if kv_override is None:
             k = apply_rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(b, s, kh, g, hd)
+    qg = shard_ctx.split_dim(q, 2, (kh, g))
 
     if kv_override is not None:
         s_enc = k.shape[1]
@@ -391,13 +514,20 @@ def attn_apply(
             _cache_prefill(cache, {"k": k, "v": v})
         else:
             _cache_prefill_rows(cache, {"k": k, "v": v}, rows)
-        out = prefill_attention(qg, k, v, positions, window=window)
+        out = _local_heads(prefill_attention, qg, k, v, positions, window=window)
     elif cache is not None:
         _cache_write(cache, {"k": k, "v": v}, rows, positions)
+        if cfg.decode_qhd_shard:
+            # Attention in the cache's head-dim-sharded layout: scores
+            # become partial sums instead of resharding the cache or q.
+            qg = shard_ctx.constrain(qg, "b...v")
         q_pos = positions[:, 0] if positions.dim() == 2 else positions[0]
-        decode = kernel_ops.flash_decode if use_kernels else flash_decode_ref
-        out = decode(qg.reshape(b, kh * g, hd), cache["k"], cache["v"],
-                     cache["pos"], q_pos, rows, window=window)
+        if shard_ctx.is_dtensor(cache["k"]):
+            out = _decode_sharded(qg, cache, q_pos, rows, window)
+        else:
+            decode = kernel_ops.flash_decode if use_kernels else flash_decode_ref
+            out = decode(qg.reshape(b, kh * g, hd), cache["k"], cache["v"],
+                         cache["pos"], q_pos, rows, window=window)
     else:
         out = FlashAttention.apply(qg, k, v, positions, window)
     out = out.reshape(b, s, kh * g * hd)

@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.sharding.ctx import is_dtensor
+
 __all__ = [
     "truncated_normal_",
     "dense",
@@ -46,7 +48,29 @@ def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
 def dense(w: torch.Tensor, x: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """``x @ w`` in ``dtype`` (the reference's ``einsum("...i,io->...o")``
-    after casting both operands)."""
+    after casting both operands).
+
+    A sharded weight (a DTensor: a sharded tier) whose contraction dim is
+    split, or an input split along it, leaves each rank a partial sum.
+    Only then is the product taken in fp32, and the partial sums reduced in
+    fp32 before the one rounding to ``dtype``, as one device's product
+    accumulates in fp32 and rounds once; summing rounded partials would
+    move every output by about an ulp.  (DTensor has no rule for a bf16
+    product with an fp32 output, ``aten.mm.dtype``.)  Any other sharded
+    product is the plain one in ``dtype``."""
+    if is_dtensor(w):
+        from torch.distributed.tensor import Replicate, Shard
+
+        if not any(isinstance(p, Shard) and p.dim % w.dim() == w.dim() - 2
+                   for p in w.placements):
+            y = torch.matmul(x.to(dtype), w.to(dtype))
+            if not any(p.is_partial() for p in y.placements):
+                return y
+        # DTensor may contract a split input against a replicated weight
+        # too: that product is redone in fp32.
+        y = torch.matmul(x.to(dtype).float(), w.to(dtype).float())
+        whole = [Replicate() if p.is_partial() else p for p in y.placements]
+        return y.redistribute(y.device_mesh, whole).to(dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
@@ -169,5 +193,15 @@ def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    if is_dtensor(table):
+        # A vocab-sharded table (a sharded tier): DTensor's embedding rule
+        # looks up each rank's rows, where an index would gather the whole
+        # table.  Its masked partial rows are summed here, once: the mask
+        # they carry is freed by the first reduction, and the embedding
+        # feeds both the residual and the first norm.
+        from torch.distributed.tensor import Replicate
+
+        out = torch.nn.functional.embedding(tokens, table.to(dtype))
+        return out.redistribute(out.device_mesh, [Replicate()] * out.device_mesh.ndim)
     return table.to(dtype)[tokens]
 

@@ -88,6 +88,7 @@ from repro_torch.models.transformer import (
     stack_init,
     unstack,
 )
+from repro_torch.sharding.ctx import constrain, local
 
 __all__ = [
     "branch_logits_per_head",
@@ -313,6 +314,7 @@ def run_trunk(
                 moe_dispatch=moe_dispatch, rows=rows, use_kernels=use_kernels,
                 remat=remat,
             )
+            h = constrain(h, "b..")
             aux = aux + a
         if stop in sites:
             site_cache = (layer_slice(caches["shared_attn"], sites.index(stop))
@@ -412,6 +414,7 @@ def prefill(
     if patch_embeds is not None:
         inputs["patch_embeds"] = patch_embeds
     h, positions = _embed_inputs(params, inputs, cfg)
+    h = constrain(h, "b..")
     if cfg.arch_type == "audio":
         if frame_embeds is None:
             raise ValueError("an audio prompt needs its frame_embeds")
@@ -422,9 +425,9 @@ def prefill(
                                  moe_dispatch=moe_dispatch, rows=rows,
                                  use_kernels=use_kernels)
     if rows is None:
-        caches["length"].fill_(h.shape[1])
+        local(caches["length"]).fill_(h.shape[1])  # each rank's copy, when sharded
     hf = norm_apply(cfg.norm_type, params["final_norm"], h2)
-    return _unembed(params, hf[:, -1:], cfg), caches
+    return constrain(_unembed(params, hf[:, -1:], cfg), "b.v"), caches
 
 
 def embed_decode(params: dict, token: torch.Tensor, positions: torch.Tensor,
@@ -468,7 +471,7 @@ def decode_step(
     out: dict[str, Any] = {}
     if layer_range is None or layer_range[1] == _total_layers(cfg):
         hf = norm_apply(cfg.norm_type, params["final_norm"], h2)
-        out["logits"] = _unembed(params, hf, cfg)[:, 0]
+        out["logits"] = constrain(_unembed(params, hf, cfg), "b.v")[:, 0]
     else:
         out["hidden"] = h2
     if with_branches:
@@ -576,7 +579,7 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
 
     def head_loss(h):
         hn = norm_apply(cfg.norm_type, params["final_norm"], h)
-        logits = _unembed(params, hn, cfg)[:, n_patch:]
+        logits = constrain(_unembed(params, hn, cfg), "b.v")[:, n_patch:]
         return softmax_xent(logits[:, :-1], labels, mask)
 
     main_loss = recomputed(head_loss, h2)
@@ -586,7 +589,8 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
         idx = [cfg.branch_layers.index(l) for l in present]
 
         def branch_loss(hs):
-            logits = _unembed(params, _stacked_branch_norm(params, hs, idx, cfg), cfg)
+            logits = constrain(_unembed(params, _stacked_branch_norm(params, hs, idx, cfg),
+                                        cfg), ".b.v")
             return torch.stack([softmax_xent(lg[:, n_patch:][:, :-1], labels, mask)
                                 for lg in logits])
 
@@ -607,7 +611,7 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *,
             h_mtp, _ = block_apply(params["mtp_block"], h, cfg, _mtp_kind(cfg),
                                    positions)
             hn = norm_apply(cfg.norm_type, params["mtp_norm"], h_mtp)
-            logits = _unembed(params, hn, cfg)[:, n_patch:]
+            logits = constrain(_unembed(params, hn, cfg), "b.v")[:, n_patch:]
             return softmax_xent(logits[:, :-2], labels2, mask2)
 
         branch_losses["mtp"] = recomputed(mtp_loss_fn, h2)

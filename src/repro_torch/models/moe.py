@@ -31,8 +31,10 @@ computes it.
 
 Everything here has static shapes (``C`` and the group count come from
 shapes on the host) and makes no host sync, so a served step that runs it
-captures in a CUDA graph.  The reference's ``constrain`` calls are
-sharding annotations and have no counterpart.
+captures in a CUDA graph.  Under a sharded segment's activation context
+the ``constrain`` calls pin the expert axis to ``model`` and the output's
+batch (the reference's sharding annotations); without one they return
+their input.
 
 Params of a stack of ``n`` MoE blocks (leading ``(n,)`` axis):
     {"router": (n, d, E), "w_gate", "w_up": (n, E, d, ff),
@@ -50,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense, silu, truncated_normal_
+from repro_torch.sharding.ctx import constrain
 
 __all__ = ["moe_init", "moe_apply", "router_topk", "expert_slots"]
 
@@ -183,6 +186,8 @@ def moe_apply(
                 * _one_hot(slot, cap + 1, dtype)[..., None, :])[..., :cap]
         # (G, T, k, E, C): slot `cap` was the drop bucket.
         x_e = torch.einsum("gtec,gtd->gecd", disp.sum(2), xg)
+        # The expert axis on "model": the experts' FFN runs expert-parallel.
+        x_e = constrain(x_e, ".v..")
         y_e = _experts_ffn(params, x_e, dtype)
         comb = (disp * w[..., None, None]).sum(2)  # (G, T, E, C)
         yg = torch.einsum("gtec,gecd->gtd", comb, y_e)
@@ -204,7 +209,7 @@ def moe_apply(
         gathered = y_e[grp, idx, torch.where(keep, pos, 0)]  # (G, T, k, d)
         yg = (gathered * w[..., None]).sum(2)
 
-    y = yg.reshape(-1, d)[:t].reshape(b, s, d)
+    y = constrain(yg.reshape(-1, d)[:t].reshape(b, s, d), "b..")
     if cfg.num_shared_experts:
         sp = params["shared"]
         g = dense(sp["w_gate"], x, dtype)

@@ -29,6 +29,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp_apply, norm_apply, norm_init, truncated_normal_
+from repro_torch.sharding.ctx import constrain
 
 __all__ = [
     "BlockKind",
@@ -281,6 +282,10 @@ def run_stack(
                                               cross_kv=kv or None,
                                               moe_dispatch=moe_dispatch),
                 layers[i], h, *(ckv or ()))
+            if cfg.seq_shard_activations:
+                # The recomputed layer's carry is sequence-sharded over the
+                # model axis (sequence parallelism).
+                h = constrain(h, "bv.")
         else:
             h, a = block_apply(
                 layers[i], h, cfg, kind, positions,

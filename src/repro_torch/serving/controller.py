@@ -162,9 +162,13 @@ class RepartitionController:
             # branch-head compute aside, as in the paper's Eq. 5); the
             # edge's uplink carries its availability (0 = breaker open,
             # an unusable link: the cut moves to all-edge).
+            # A mesh-sharded server's shard widths and interconnect carry
+            # into the specs, so a re-solve prices the sharded cloud tier.
+            dev = getattr(self.server, "tier_devices", None) or (1, 1)
+            ici = getattr(self.server, "ici_bps", 0.0)
             tiers = [TierSpec("edge", prof.gamma, prof.network.bandwidth_bps,
-                              availability=avail),
-                     TierSpec("cloud", 1.0)]
+                              devices=dev[0], ici_bps=ici, availability=avail),
+                     TierSpec("cloud", 1.0, devices=dev[1], ici_bps=ici)]
             plan = solve_multitier(
                 prof.t_c, prof.alpha, prof.branch_exit_probs(), tiers,
                 batch=self.batch if bucketed else None, overlap=overlap,

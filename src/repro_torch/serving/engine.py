@@ -24,9 +24,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.calibration import CalibrationResult, calibrate_exit_probs
+from repro_torch.launch.mesh import mesh_devices
 from repro_torch.models.model import init_caches, prefill
 from repro_torch.serving.scheduler import ServesRequests
 from repro_torch.serving.tiers import TierExecutor, TierStepResult, segments_for_cuts
+from repro_torch.sharding.ctx import plain
 
 __all__ = ["ServingEngine", "ExitStats"]
 
@@ -70,12 +72,19 @@ class ServingEngine(ServesRequests):
     heads_batched: bool = True  # one stacked exit decision per step
     slots: int = 8  # request-scheduler KV slots (submit/run/drain)
     graphs: bool | None = None  # None = CUDA graphs on CUDA, eager on the CPU
+    # A DeviceMesh (and optionally an explicit ShardingPolicy): the trunk
+    # runs sharded over it (serving.tiers, "Mesh-sharded tier segments");
+    # the executor places params and caches.
+    mesh: Any = None
+    sharding: Any = None
 
     def __post_init__(self):
         self._exec = TierExecutor(
-            self.cfg, self.params, segments_for_cuts(self.cfg, ()),
+            self.cfg, self.params,
+            segments_for_cuts(self.cfg, (), devices=(mesh_devices(self.mesh),)),
             use_kernels=self.use_kernels, batched_heads=self.heads_batched,
-            device=self.device, graphs=self.graphs,
+            device=self.device, graphs=self.graphs, mesh=self.mesh,
+            sharding=self.sharding,
         )
         self.device = self._exec.device
         self.params = self._exec.params
@@ -108,14 +117,15 @@ class ServingEngine(ServesRequests):
         if self.cfg.arch_type == "audio":
             extra["frame_embeds"] = torch.as_tensor(inputs["frame_embeds"],
                                                     device=self.device)
-        caches = init_caches(self.cfg, batch, self.context_len,
-                             device=self.device)
-        logits, caches = prefill(self.params, tokens, self.cfg, caches, **extra,
-                                 use_kernels=self._exec.use_kernels)
+        caches = self._exec.shard_caches(
+            init_caches(self.cfg, batch, self.context_len, device=self.device))
+        with self._exec.mesh_context():
+            logits, caches = prefill(self.params, tokens, self.cfg, caches, **extra,
+                                     use_kernels=self._exec.use_kernels)
         return {
             "caches": caches,
             "pos": prompt_len,
-            "last_logits": logits[:, 0],
+            "last_logits": plain(logits[:, 0]),
             "batch": batch,
         }
 

@@ -92,6 +92,12 @@ class MultiTierServer(ServesRequests):
     # sets the retry, timeout and breaker knobs.
     fault_model: Any = None
     hop_policy: Any = None
+    # A DeviceMesh (and optionally an explicit ShardingPolicy): the segments
+    # run sharded over it (serving.tiers, "Mesh-sharded tier segments").
+    # Which tier is priced as sharded is each TierSpec's ``devices`` /
+    # ``ici_bps``, carried into the segments and the estimate.
+    mesh: Any = None
+    sharding: Any = None
 
     def __post_init__(self):
         self.tiers = tuple(self.tiers)
@@ -103,6 +109,7 @@ class MultiTierServer(ServesRequests):
             bucket_headroom=self.bucket_headroom, device=self.device,
             simulate_network=self.simulate_network, overlap=self.overlap,
             fault_model=self.fault_model, hop_policy=self.hop_policy,
+            mesh=self.mesh, sharding=self.sharding,
         )
         self.device = self.executor.device
         self.params = self.executor.params
@@ -131,7 +138,8 @@ class MultiTierServer(ServesRequests):
     def _segments(self, cuts: tuple[int, ...]):
         return segments_for_cuts(self.cfg, cuts,
                                  names=tuple(t.name for t in self.tiers),
-                                 uplinks=tuple(t.uplink_bps for t in self.tiers))
+                                 uplinks=tuple(t.uplink_bps for t in self.tiers),
+                                 devices=tuple(t.devices for t in self.tiers))
 
     def install_cuts(self, cuts: Sequence[int]) -> None:
         """Move the hop points at run time."""

@@ -35,6 +35,7 @@ from repro_torch.core.latency import expected_time
 from repro_torch.core.multitier import TierSpec, expected_time_multitier
 from repro_torch.core.profiler import H100_SXM, branch_head_cost
 from repro_torch.core.types import CostProfile, NetworkProfile
+from repro_torch.launch.mesh import mesh_devices
 from repro_torch.serving.scheduler import ServesRequests
 from repro_torch.serving.tiers import (
     HopCompaction,
@@ -105,8 +106,20 @@ class PartitionedServer(ServesRequests):
     # sets the retry, timeout and breaker knobs.
     fault_model: Any = None
     hop_policy: Any = None
+    # A DeviceMesh (and optionally an explicit ShardingPolicy): the cloud
+    # tier is a group of cards, and the segments run sharded over the mesh
+    # (serving.tiers, "Mesh-sharded tier segments").  ``tier_devices`` is
+    # the (edge, cloud) shard width the estimate prices (None = (1, the
+    # mesh's size), or (1, 1) without a mesh); ``ici_bps`` the cloud's
+    # interconnect, for its collective term.
+    mesh: Any = None
+    sharding: Any = None
+    tier_devices: tuple[int, int] | None = None
+    ici_bps: float = 0.0
 
     def __post_init__(self):
+        if self.tier_devices is None:
+            self.tier_devices = (1, mesh_devices(self.mesh))
         self.executor = TierExecutor(
             self.cfg, self.params, self._segments(self.split_layer),
             compaction=self.compaction, use_kernels=self.use_kernels,
@@ -114,7 +127,7 @@ class PartitionedServer(ServesRequests):
             bucket_headroom=self.bucket_headroom, device=self.device,
             graphs=self.graphs, simulate_network=self.simulate_network,
             overlap=self.overlap, fault_model=self.fault_model,
-            hop_policy=self.hop_policy,
+            hop_policy=self.hop_policy, mesh=self.mesh, sharding=self.sharding,
         )
         self.device = self.executor.device
         self.params = self.executor.params
@@ -122,7 +135,8 @@ class PartitionedServer(ServesRequests):
     def _segments(self, s: int):
         return segments_for_cuts(
             self.cfg, (s,), names=("edge", "cloud"),
-            uplinks=(self.network.bandwidth_bps,) if self.network else None)
+            uplinks=(self.network.bandwidth_bps,) if self.network else None,
+            devices=self.tier_devices)
 
     def set_split(self, split_layer: int) -> None:
         """Move the cut at run time."""
@@ -153,6 +167,15 @@ class PartitionedServer(ServesRequests):
             degraded_hop=res.degraded_hop,
         )
         return rep, caches
+
+    def tier_specs(self, prof: CostProfile) -> list[TierSpec]:
+        """The (edge, cloud) :class:`TierSpec` pair the lattice prices this
+        server with: the profile's gamma and uplink, each tier's shard width
+        (``tier_devices``) and the interconnect (``ici_bps``)."""
+        return [TierSpec("edge", prof.gamma, prof.network.bandwidth_bps,
+                         devices=self.tier_devices[0], ici_bps=self.ici_bps),
+                TierSpec("cloud", 1.0, devices=self.tier_devices[1],
+                         ici_bps=self.ici_bps)]
 
     def _estimate(self, s: int, res: TierStepResult) -> float | None:
         """Paper Eq. 5 evaluated at this split with the *measured*
@@ -191,8 +214,7 @@ class PartitionedServer(ServesRequests):
         bucketed = self.compaction == "bucketed"
         pipelined = self.overlap == "pipelined"
         if (bucketed or pipelined) and prof.network is not None:
-            tiers = [TierSpec("edge", prof.gamma, prof.network.bandwidth_bps),
-                     TierSpec("cloud", 1.0)]
+            tiers = self.tier_specs(prof)
             head_cost = (
                 branch_head_cost(self.cfg, batch, heads_batched=self.heads_batched,
                                  hardware=H100_SXM)

@@ -160,7 +160,9 @@ class RequestScheduler:
         #: reclaimed either way.
         self.requeue_on_fail = requeue_on_fail
         self.max_requeues = max_requeues
-        self.caches = M.init_caches(cfg, slots, context_len, device=self.device)
+        # A mesh-sharded executor places the slot caches under its policy.
+        self.caches = self.executor.shard_caches(
+            M.init_caches(cfg, slots, context_len, device=self.device))
         self.pos = np.zeros(slots, np.int32)  # next decode position per slot
         self.active = np.zeros(slots, bool)
         self.tok_dev = torch.zeros((slots, 1), dtype=torch.int32,

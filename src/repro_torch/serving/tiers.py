@@ -147,12 +147,57 @@ benign :class:`~repro_torch.serving.faults.LinkFaultModel`):
 A benign model (no flaps, drops or spikes, multiplier 1) leaves every
 token, mask, cache write and byte count bitwise as without it.
 
-Not ported yet (see ROADMAP.md): mesh-sharded segments.
+Mesh-sharded tier segments (``mesh`` / ``sharding``): a tier in a fleet
+is a group of cards, not one.  Passing a ``DeviceMesh``
+(:func:`~repro_torch.launch.mesh.make_local_mesh`; optionally an explicit
+:class:`~repro_torch.sharding.policy.ShardingPolicy`, by default
+:func:`~repro_torch.sharding.policy.make_policy`) runs every segment as one
+program over the mesh's ranks on ``torch.distributed.tensor``:
+
+  * **params** are placed once at construction under the policy's
+    ``param_spec`` rules (attention projections, FFN hidden, expert dim and
+    vocab on ``model``; FSDP over ``data`` where configured; indivisible
+    dims replicated) as DTensors;
+  * **KV / SSM caches** are placed by :meth:`TierExecutor.shard_caches`
+    (callers run it right after ``init_caches``) under ``cache_spec``:
+    kv-heads on ``model`` when divisible, else head_dim.  Steps write them
+    in place, each rank on its own shard;
+  * **activations** follow from DTensor's sharding rules; inside a segment
+    the model's ``constrain`` call sites redistribute them through the
+    :mod:`repro_torch.sharding.ctx` context, and plain tensors (tokens,
+    positions, masks) count as replicated.  Where DTensor has no rule the
+    call site is explicit and says so: the ring writes and the attention
+    run on each rank's shard, a reshape that splits a head gathers first,
+    and the exit heads' and the final head's logits are gathered whole, so
+    a step's row bookkeeping (exits, tokens, compaction) is plain tensors,
+    equal on every rank;
+  * **kernels** resolve to the plain versions
+    (``resolve_use_kernels(..., sharded=True)``): the Hopper kernels are
+    single-device programs and must not see a mesh-global batch;
+  * **CUDA graphs** do not apply: a gloo collective cannot be captured, so
+    ``graphs=None`` resolves to eager and ``graphs=True`` raises.
+
+The sharded-segment contract: every unsharded invariant holds — exactly
+one host sync per decode step on each rank (the step's outputs are
+gathered to every rank before the one fetch), survivor compaction with the
+same bucket ladder, the segment cache (hot-swapping a cut rebuilds no
+unchanged segment), per-request isolation — and the token, exit-mask and
+shipped-count trajectory is the unsharded one.  Logits are not bitwise:
+partial sums reduce in another order.  Every rank must drive the same
+steps with the same host inputs; host-side decisions (buckets, hints) are
+taken from the fetched values, which are equal on every rank.
+
+All segments share the executor's mesh: which tier is sharded is a cost
+model property, carried by ``TierSegment.devices`` (not part of the
+segment key) and ``TierSpec.devices``: the lattice prices a sharded tier's
+layers at ``t_c / devices`` plus two ring all-reduces of the layer's
+output per layer (:mod:`repro_torch.core.multitier`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import time
@@ -165,6 +210,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.multitier import bucket_for, bucket_ladder
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
+from repro_torch.launch.mesh import mesh_devices
 from repro_torch.models.layers import norm_apply
 from repro_torch.models.model import (
     _unembed,
@@ -187,6 +233,8 @@ from repro_torch.serving.faults import (
     LinkFaultModel,
     attempt_hop,
 )
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding.policy import make_policy
 
 __all__ = [
     "HopCompaction",
@@ -210,14 +258,17 @@ TOKEN_ID_BYTES = 4.0
 @dataclasses.dataclass(frozen=True)
 class TierSegment:
     """One tier's share of the trunk: layers ``[layer_lo, layer_hi)``
-    (absolute, 0-based), the 1-based branch points it evaluates, and the
-    uplink to the next tier (bits/s; None on the last tier)."""
+    (absolute, 0-based), the 1-based branch points it evaluates, the
+    uplink to the next tier (bits/s; None on the last tier), and the tier's
+    shard width (``devices > 1``: the tier is a mesh; a cost-model term,
+    not part of the segment's key)."""
 
     name: str
     layer_lo: int
     layer_hi: int
     branches: tuple[int, ...] = ()
     uplink_bps: float | None = None
+    devices: int = 1
 
     @property
     def is_empty(self) -> bool:
@@ -265,11 +316,13 @@ def segments_for_cuts(
     *,
     names: Sequence[str] | None = None,
     uplinks: Sequence[float] | None = None,
+    devices: Sequence[int] | None = None,
 ) -> tuple[TierSegment, ...]:
     """Monotone 1-based cut points ``(c_1 .. c_{K-1})`` -> K segments.
     Tier j runs layers ``(c_j, c_{j+1}]``; branches sit strictly inside a
     tier, never on the final tier of a K >= 2 plan.  ``uplinks[j]`` is
-    tier j's uplink (the last tier has none)."""
+    tier j's uplink (the last tier has none); ``devices[j]`` its shard
+    width (default 1)."""
     total = sum(n for _, _, n in trunk_layout(cfg))
     bounds = (0, *(int(c) for c in cuts), total)
     if any(b > a for a, b in zip(bounds[1:], bounds[:-1])):
@@ -286,15 +339,24 @@ def segments_for_cuts(
                 if lo < b and (b <= hi if hi == total else b < hi)
             )
         up = uplinks[j] if uplinks and j < len(uplinks) and j < k - 1 else None
-        segs.append(TierSegment(names[j] if names else f"tier{j}", lo, hi, brs, up))
+        dev = int(devices[j]) if devices and j < len(devices) else 1
+        segs.append(TierSegment(names[j] if names else f"tier{j}", lo, hi, brs, up,
+                                dev))
     return tuple(segs)
 
 
-def resolve_graphs(flag: bool | None, device) -> bool:
+def resolve_graphs(flag: bool | None, device, *, sharded: bool = False) -> bool:
     """The ``graphs`` tri-state for an executor on ``device``: None = CUDA
     graphs on a CUDA device, eager on the CPU; True off CUDA raises;
-    False runs eager on the card too (the comparison baseline)."""
+    False runs eager on the card too (the comparison baseline).  A sharded
+    executor runs eager (None) or raises (True): a gloo collective cannot
+    be captured."""
     dev = torch.device(device)
+    if sharded:
+        if flag:
+            raise ValueError("graphs=True on a sharded mesh: its collectives "
+                             "cannot be captured in a CUDA graph")
+        return False
     if flag is None:
         return dev.type == "cuda"
     if flag and dev.type != "cuda":
@@ -450,7 +512,14 @@ class TierExecutor:
     transfer over its segment's uplink.  ``overlap``: "serial" pays the
     transfers inline; "pipelined" runs them on per-hop host link clocks
     overlapped with the next step.  ``fault_model`` / ``hop_policy`` arm
-    the fault plane (see the module doc)."""
+    the fault plane (see the module doc).
+
+    ``mesh`` / ``sharding``: run the segments over a device mesh (see the
+    module doc's sharded-segment contract).  Params are placed at
+    construction; callers place caches through :meth:`shard_caches`.
+    ``sharding=None`` derives the policy with
+    :func:`~repro_torch.sharding.policy.make_policy`.  A one-device mesh is
+    unsharded."""
 
     def __init__(
         self,
@@ -469,6 +538,8 @@ class TierExecutor:
         overlap: str = "serial",
         fault_model: LinkFaultModel | None = None,
         hop_policy: HopPolicy | None = None,
+        mesh: Any = None,
+        sharding: Any = None,
     ):
         if compaction not in ("bucketed", "off"):
             raise ValueError(f"unknown compaction mode: {compaction!r}")
@@ -480,12 +551,18 @@ class TierExecutor:
             raise ValueError(f"bucket_headroom must be >= 0: {bucket_headroom}")
         self.cfg = cfg
         self.device = kernel_ops.resolve_device(device)
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh_devices(mesh) > 1
         self.use_kernels = kernel_ops.resolve_use_kernels(
             cfg.use_kernels if use_kernels is None else use_kernels,
-            self.device)
-        self.graphs = resolve_graphs(graphs, self.device)
-        self.params = compute_params(_to_device(params, self.device),
-                                     compute_dtype(cfg))
+            self.device, sharded=self.sharded)
+        self.graphs = resolve_graphs(graphs, self.device, sharded=self.sharded)
+        params = compute_params(_to_device(params, self.device), compute_dtype(cfg))
+        self.policy = None
+        if self.sharded:
+            self.policy = sharding if sharding is not None else make_policy(mesh, cfg)
+            params = self.policy.shard_params(params)
+        self.params = params
         self.compaction = compaction
         self.simulate_network = simulate_network
         self.overlap = overlap
@@ -572,6 +649,30 @@ class TierExecutor:
                                                  probe_m, degrade)
         return fn
 
+    # ---------------------------------------------------------- sharding
+    def shard_caches(self, caches: dict) -> dict:
+        """Place a freshly initialized cache tree per the policy's cache
+        rules (unchanged without a mesh).  Callers run it right after
+        ``init_caches``."""
+        if not self.sharded:
+            return caches
+        return self.policy.shard_caches(caches)
+
+    def mesh_context(self):
+        """The context a sharded executor's device work runs in: the
+        activation-sharding context, with plain tensors meeting DTensors
+        counted as replicated.  A null context without a mesh."""
+        if not self.sharded:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        pol = self.policy
+        stack = contextlib.ExitStack()
+        stack.enter_context(shard_ctx.activation_sharding(
+            pol.mesh, pol.batch_axes, pol.model_axis))
+        stack.enter_context(implicit_replication())
+        return stack
+
     # ---------------------------------------------------- host <-> device
     def _upload(self, value, dtype: torch.dtype) -> torch.Tensor:
         """A host value on the device without a sync (pinned, async)."""
@@ -594,14 +695,18 @@ class TierExecutor:
         """(entropy, raw flag, argmax token) of one (B, V) head."""
         decide = (kernel_ops.entropy_exit_argmax if self.use_kernels
                   else ref.entropy_exit_argmax_ref)
-        return decide(logits, self.cfg.exit_threshold)
+        # Sharded: the logits are gathered whole first, so the entropy, the
+        # flag and the first-index argmax are each rank's own, equal plain
+        # tensors (as is all of a step's row bookkeeping).
+        return decide(shard_ctx.plain(logits), self.cfg.exit_threshold)
 
     def _head_decisions(self, layers, logits_k: torch.Tensor):
         """Per-head (entropy, raw flag, token) of a (K, B, V) head pile in
         one decision."""
         decide = (kernel_ops.entropy_exit_argmax_heads if self.use_kernels
                   else ref.entropy_exit_argmax_heads_ref)
-        e, flag, tok = decide(logits_k, self.cfg.exit_threshold)
+        # Sharded: the logits are gathered whole first (see _exit_decision).
+        e, flag, tok = decide(shard_ctx.plain(logits_k), self.cfg.exit_threshold)
         return {layer: (e[r], flag[r], tok[r]) for r, layer in enumerate(layers)}
 
     # ------------------------------------------------------------ segment
@@ -638,6 +743,7 @@ class TierExecutor:
             layer_range=(seg.layer_lo, seg.layer_hi), collect=eval_layers,
             rows=rows_rw, use_kernels=self.use_kernels,
         )
+        h = shard_ctx.plain(h)  # sharded: the hop's payload, whole on each rank
         sub = xb.shape[0]
         # A sampled probe's rows are batch indices, folded into the
         # sub-batch (a compacted tier runs a dense permutation of it).
@@ -694,7 +800,8 @@ class TierExecutor:
         logits = None
         if head:
             hf = norm_apply(cfg.norm_type, params["final_norm"], h)
-            logits = _unembed(params, hf, cfg)[:, 0]
+            # Sharded: gathered whole, as the exit heads' (_exit_decision).
+            logits = shard_ctx.plain(_unembed(params, hf, cfg)[:, 0])
             ch = torch.where(ex, ch, logits.argmax(-1).to(torch.int32))
             caches["length"] += 1
         # Probe reports in batch order: their columns are the sub-batch's
@@ -818,17 +925,25 @@ class TierExecutor:
         rings, states = self._stateful(caches)
         saved = []
         for kv in rings:
-            n, bc, c = kv["pos"].shape
-            if pos_t.dim() == 1:
-                slots = (pos_t.long() % c)[None, :].expand(n, bc)
-            else:
-                slots = (kv["length"].long() % c)[:, None].expand(n, bc)
-            li = torch.arange(n, device=self.device)[:, None]
-            bi = torch.arange(bc, device=self.device)[None, :]
-            idx = (li, bi, slots)
-            saved.append((kv, idx, {k: kv[k][idx].clone() for k in kv if k != "length"}))
+            c = kv["pos"].shape[2]
+            # Each leaf on this rank's shard (the whole leaf when unsharded):
+            # its rows' slots, read and restored in place.
+            bufs, idxs = {}, {}
+            for k in kv:
+                if k == "length":
+                    continue
+                bufs[k], off = shard_ctx.local_rows(kv[k], dim=1)
+                n, bc = bufs[k].shape[:2]
+                if pos_t.dim() == 1:
+                    slots = (pos_t.long()[off:off + bc] % c)[None, :].expand(n, bc)
+                else:
+                    slots = (shard_ctx.plain(kv["length"]).long() % c)[:, None].expand(n, bc)
+                idxs[k] = (torch.arange(n, device=self.device)[:, None],
+                           torch.arange(bc, device=self.device)[None, :], slots)
+            saved.append((bufs, idxs, {k: bufs[k][idxs[k]].clone() for k in bufs}))
         for st in states:
-            saved.append((st, None, {k: st[k].clone() for k in ("conv", "ssm")}))
+            bufs = {k: shard_ctx.local(st[k]) for k in ("conv", "ssm")}
+            saved.append((bufs, None, {k: t.clone() for k, t in bufs.items()}))
         lengths = [(t, t.clone()) for t in
                    (caches["length"], *(c["length"] for c in rings + states))]
         return saved, lengths
@@ -836,12 +951,12 @@ class TierExecutor:
     @staticmethod
     def _restore(snapshot, caches) -> None:
         saved, lengths = snapshot
-        for buf, idx, vals in saved:
+        for bufs, idxs, vals in saved:
             for k, v in vals.items():
-                if idx is None:
-                    buf[k].copy_(v)
+                if idxs is None:
+                    bufs[k].copy_(v)
                 else:
-                    buf[k][idx] = v
+                    bufs[k][idxs[k]] = v
         for t, v in lengths:
             t.copy_(v)
 
@@ -1064,6 +1179,10 @@ class TierExecutor:
                 x = out["hidden"]
         fetch["tokens"] = chosen
         fetch["exited"] = exited
+        if self.sharded:
+            # The step's outputs, whole on every rank, before the one fetch.
+            fetch = {k: shard_ctx.plain(t) for k, t in fetch.items()}
+            chosen, logits = fetch["tokens"], shard_ctx.plain(logits)
         return fetch, chosen, logits
 
     def _run_once(self, tok, pos_t, caches, buckets, exited0, active_np,
@@ -1135,6 +1254,10 @@ class TierExecutor:
         tokens (on the device, or host values); ``pos`` the shared step
         position or a per-sequence (B,) vector; ``active`` (B,) marks live
         slots (dead slots enter pre-exited)."""
+        with self.mesh_context():
+            return self._step(tok, pos, caches, active)
+
+    def _step(self, tok, pos, caches: dict, active) -> tuple[TierStepResult, dict]:
         cfg = self.cfg
         batch = tok.shape[0]
         active_np = None if active is None else np.array(active, dtype=bool)
@@ -1281,10 +1404,11 @@ class TierExecutor:
         reference's row-targeted prefill does: its encoder output is per
         batch."""
         toks = self._upload(tokens, torch.int64)
-        logits, caches = prefill(self.params, toks, self.cfg, caches,
-                                 rows=np.asarray(rows, np.int64),
-                                 use_kernels=self.use_kernels)
-        return caches, logits[:, 0].argmax(-1).to(torch.int32)
+        with self.mesh_context():
+            logits, caches = prefill(self.params, toks, self.cfg, caches,
+                                     rows=np.asarray(rows, np.int64),
+                                     use_kernels=self.use_kernels)
+            return caches, shard_ctx.plain(logits[:, 0]).argmax(-1).to(torch.int32)
 
     def reset_rows(self, caches: dict, rows) -> dict:
         """Mark cache rows empty without moving K/V: ring slot validity
@@ -1300,8 +1424,9 @@ class TierExecutor:
         for buf, key, fill in ([(kv, "pos", -1) for kv in rings]
                                + [(st, k, 0) for st in states
                                   for k in ("conv", "ssm")]):
-            t = buf[key]
-            keep = rows[rows < t.shape[1]]
+            # This rank's shard of the leaf (the whole leaf when unsharded).
+            t, off = shard_ctx.local_rows(buf[key], dim=1)
+            keep = rows[(rows >= off) & (rows < off + t.shape[1])] - off
             if keep.size:
                 t[:, torch.as_tensor(keep, device=self.device)] = fill
         return caches

@@ -597,8 +597,16 @@ class TestProfiler:
         kv = inputs[0][1]["blocks"]["self"]
         assert kv["pos"][:, :, :5].eq(torch.arange(5)).all()
         assert kv["pos"][:, :, 5:].eq(-1).all() and kv["length"].eq(5).all()
-        with pytest.raises(NotImplementedError, match="mesh"):
-            T.profile_decode_layers(tcfg, tp, 2, 16, devices=2)
+        # A sharded tier (devices > 1) is priced, no longer refused: the
+        # devices=1 costs over the shard width plus the collective term,
+        # as the reference prices it.
+        one = T.profile_decode_layers(tcfg, tp, 2, 16)
+        two = T.profile_decode_layers(tcfg, tp, 2, 16, devices=2)
+        for o, t in zip(one, two):
+            assert (t.flops, t.bytes_accessed, t.output_bytes) == (
+                o.flops, o.bytes_accessed, o.output_bytes)
+            assert t.time_s == pytest.approx(
+                o.time_s / 2 + T.H100_SXM.collective_time(o.output_bytes, 2), rel=1e-12)
         with pytest.raises(ValueError, match="mode"):
             T.profile_decode_layers(tcfg, tp, 2, 16, mode="guess")
 

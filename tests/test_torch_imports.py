@@ -36,7 +36,9 @@ for name in ("repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_1_2b
              "repro_torch.data.pipeline", "repro_torch.examples.train_branchy",
              "repro_torch.benchmarks.fig6_calibration", "repro_torch.models.moe",
              "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.internvl2_76b",
-             "repro_torch.configs.qwen3_moe_30b_a3b"):
+             "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.sharding.policy",
+             "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
+             "repro_torch.launch.ranks"):
     assert name in names, name
 """
 
@@ -47,7 +49,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 61
+    assert n_modules >= 67
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
