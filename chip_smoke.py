@@ -221,6 +221,32 @@ exit) if any phase fails:
      rank, no kernel launched, kernels and graphs resolved off, a
      ``Shard``-placed leaf; the step ms of the two ranks (not a two-card
      time) and each rank's bytes and peak.
+  4f. dryrun — the launch layer's dry run (``repro_torch.launch.dryrun.
+     run_one``) at full published size on the (16, 16) production mesh of
+     a fake 256-rank process group, every leaf a DTensor whose local shard
+     lives on the ``meta`` device.  Host work only: it runs in two spawned
+     processes beside the sharded phases (4e, 4g), and this phase waits
+     for them after 4g and checks their records.  Every configuration at
+     ``decode_32k``, OLMo-1B and Qwen3-8B at ``train_4k``, Qwen3-8B at
+     ``prefill_32k``: each ``ok``, with ``torch.cuda.memory_allocated()``
+     unchanged and no process group left behind, and its per-device param
+     bytes equal to the policy walk's (data 16 x model 16, in the params'
+     own dtypes); Whisper at ``long_500k`` comes back ``skipped``.  Each
+     record's argument bytes, eager peak, dot FLOPs x 256 beside 2 x
+     active params x tokens (6 x for a train step) and collective bytes
+     are printed.  No kernel runs: the dry run computes nothing.
+  4g. sharded train — OLMo-1B at full width and depth (bf16 params and
+     compute, fp32 moments, remat on): 3 AdamW steps of 4 x 256 tokens at
+     accum 1 and at accum 2, unsharded in this process from the seed-0 state and
+     batch (then freed), then by two ranks sharing the card over gloo
+     (``RankPool``) on a (1, 2) and a (2, 1) mesh, each from the same
+     seeded state placed by the policy: every step's loss and grad_norm,
+     every param and each rank's shard of every AdamW moment leaf after
+     the last step, within the bounds at ``STRAIN_*`` of the unsharded
+     run's; every optimizer-state leaf in
+     its ``opt_state_shardings`` placement after the last step; no kernel
+     launched.  Step ms per rank (host clock: two ranks on one card, not a
+     two-card time) and each rank's peak GB.
 
   7. example — ``python -m repro_torch.examples.serve_partitioned`` on the
      card at its smoke size, in a process of its own; it must exit 0.
@@ -3545,7 +3571,8 @@ def shard_price_phase(torch, dev, cfg, wparams) -> dict:
 def policy_walk_phase(torch) -> dict:
     """Part 2: the policy over every configuration at full published size,
     a walk over meta tensors (nothing allocated): per card, the largest
-    param bytes in bf16 and the cache bytes at 8 slots x 4096; the leaves
+    param bytes in bf16 (and in the params' own dtypes, ``param_bytes``)
+    and the cache bytes at 8 slots x 4096; the leaves
     left replicated; every leaf sharded or replicated by a rule (each
     sharded dim divisible by its axes); and whether it fits one card at
     model = 8."""
@@ -3583,10 +3610,12 @@ def policy_walk_phase(torch) -> dict:
                                  tuple(a for a in ("pod", "data") if a in axes))
             pspecs = [(pol.param_spec(p, t.shape), t) for p, t in params]
             pbytes = sum(per_card(s, t.shape, axes) * 2 for s, t in pspecs)
+            native = sum(per_card(s, t.shape, axes) * t.element_size() for s, t in pspecs)
             cbytes = sum(per_card(pol.cache_spec(p, t.shape), t.shape, axes) * t.element_size()
                          for p, t in caches)
             repl = sum(all(e is None for e in s) for s, _ in pspecs)
-            row[label] = dict(param_gb=pbytes / 1e9, cache_gb=cbytes / 1e9, replicated=repl,
+            row[label] = dict(param_gb=pbytes / 1e9, param_bytes=native,
+                              cache_gb=cbytes / 1e9, replicated=repl,
                               leaves=len(pspecs), fits=pbytes + cbytes <= CARD_BYTES)
         check(not uneven, f"{arch}: every leaf sharded evenly or replicated by a rule "
               f"({len(params) + len(caches)} leaves on each mesh; uneven: {uneven})")
@@ -3945,6 +3974,395 @@ def sharded_phase(torch, dev, smi: str) -> dict:
             f"baseline's {cmp['baseline_step_ms']:.3f} [{smi}]")
         out["runs"].append(cmp)
     return out
+
+
+# ------------------------------------------------------------- launch layer
+#: The dry run's cells on the card: every
+#: configuration at decode_32k, two trainers and one prefill, and the one
+#: combination the reference skips.
+DRYRUN_MORE = (("olmo_1b", "train_4k"), ("qwen3_8b", "train_4k"),
+               ("qwen3_8b", "prefill_32k"), ("whisper_medium", "long_500k"))
+DRYRUN_SKIPPED = ("whisper_medium", "long_500k")
+DRYRUN_LONGEST = ("qwen3_8b", "train_4k")
+DRYRUN_RANKS = 256
+#: How long the phase waits for the dry run's processes once the sharded
+#: phases are done (they started before them).
+DRYRUN_WAIT_S = 600.0
+
+
+def dryrun_cells() -> list:
+    from repro_torch.configs import ARCH_IDS
+
+    return [(a, "decode_32k") for a in ARCH_IDS] + list(DRYRUN_MORE)
+
+
+def dryrun_worker(out_dir: str, summary: str, cells: list) -> None:
+    """Dry-run ``cells`` in a process of its own (see :func:`start_dryrun`):
+    each record under ``out_dir``, and per cell the seconds it took, whether
+    a process group was left behind, and whether this process touched the
+    card (``torch.cuda.is_initialized()``, ``memory_allocated()``), into
+    the JSON file ``summary``."""
+    os.nice(10)
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import run_one
+
+    torch.set_num_threads(1)
+    rows = []
+    Path(summary).write_text("[]")
+    for arch, shape in cells:
+        t0 = time.perf_counter()
+        rec = run_one(arch, shape, False, out_dir=Path(out_dir), force=True)
+        rows.append(dict(arch=arch, shape=shape, status=rec["status"],
+                         secs=time.perf_counter() - t0, group_left=dist.is_initialized(),
+                         cuda_initialized=torch.cuda.is_initialized(),
+                         cuda_allocated=torch.cuda.memory_allocated()))
+        Path(summary).write_text(json.dumps(rows))
+
+
+def start_dryrun():
+    """Start the dry run (4f) beside the sharded phases, in two spawned
+    processes at a lower priority: the longest cell (Qwen3-8B's train step,
+    ~150 s of one core) in one, the rest in the other.  It is host work
+    only (DTensors over ``meta`` shards, a fake process group): nothing of
+    the card.  It starts after the phases that time the card against the
+    host clock (a busy host left gaps between graph replays).  Returns
+    [(the process, its summary file)] and the records' directory."""
+    import multiprocessing as mp
+
+    from repro_torch.launch.dryrun import RESULTS_DIR
+
+    out_dir = RESULTS_DIR / "chip_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cells = dryrun_cells()
+    groups = [[c for c in cells if c == DRYRUN_LONGEST],
+              [c for c in cells if c != DRYRUN_LONGEST]]
+    procs = []
+    for i, group in enumerate(groups):
+        summary = out_dir / f"cells{i}.json"
+        proc = mp.get_context("spawn").Process(target=dryrun_worker, daemon=True,
+                                               args=(str(out_dir), str(summary), group))
+        proc.start()
+        procs.append((proc, summary))
+    return procs, out_dir
+
+
+def dryrun_phase(torch, smi: str, walk: dict, started) -> dict:
+    """The dry run on the production (16, 16) mesh (see the module doc, 4f):
+    waits for :func:`start_dryrun`'s process and checks its records.
+    ``walk``: :func:`policy_walk_phase`'s rows."""
+    from repro_torch.configs import INPUT_SHAPES
+
+    procs, out_dir = started
+    log(f"dryrun: {smi}")
+    t0 = time.perf_counter()
+    rows = []
+    for proc, summary in procs:
+        proc.join(max(DRYRUN_WAIT_S - (time.perf_counter() - t0), 1.0))
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        check(proc.exitcode == 0, f"dryrun: a worker process exited 0 (exit code "
+              f"{proc.exitcode}; waited {time.perf_counter() - t0:.1f} s)")
+        rows += json.loads(summary.read_text())
+    waited = time.perf_counter() - t0
+    check(len(rows) == len(dryrun_cells()), f"dryrun: all {len(dryrun_cells())} cells ran "
+          f"(waited {waited:.1f} s for the workers)")
+    out = {"waited_s": waited}
+    for row in rows:
+        arch, shape = row["arch"], row["shape"]
+        rec = json.loads((out_dir / f"{arch}__{shape}__pod16x16.json").read_text())
+        check(not row["group_left"], f"dryrun {arch} {shape}: no process group left")
+        check(not row["cuda_initialized"] and row["cuda_allocated"] == 0,
+              f"dryrun {arch} {shape}: the card untouched (no CUDA context, "
+              f"memory_allocated {row['cuda_allocated']})")
+        if (arch, shape) == DRYRUN_SKIPPED:
+            check(rec["status"] == "skipped", f"dryrun {arch} {shape}: skipped "
+                  f"({rec.get('reason', rec['status'])})")
+            log(f"  {arch} {shape}: skipped ({rec['reason'][:80]}...)")
+            out[f"{arch} {shape}"] = dict(status="skipped")
+            continue
+        if rec["status"] != "ok":
+            log(rec.get("trace", ""))
+        check(rec["status"] == "ok", f"dryrun {arch} {shape}: ok ({rec.get('error', '')})")
+        mem = rec["memory"]
+        want = walk[arch]["data 16 x model 16"]["param_bytes"]
+        check(mem["param_bytes"] == want, f"dryrun {arch} {shape}: per-device param bytes "
+              f"{mem['param_bytes']} == the policy walk's {want}")
+        sh = INPUT_SHAPES[shape]
+        tokens = sh.global_batch * (1 if sh.is_decode else sh.seq_len)
+        model = (6 if sh.kind == "train" else 2) * rec["active_params"] * tokens
+        coll = {k: v for k, v in rec["collectives"].items() if k != "_counts" and v}
+        log(f"  {arch} {shape} ({row['secs']:.1f} s, trace {rec['trace_s']} s): arguments "
+            f"{mem['argument_bytes'] / 1e9:.3f} GB (params {mem['param_bytes'] / 1e9:.3f}), "
+            f"eager peak {mem['peak_bytes_est'] / 1e9:.3f} GB per device; dot FLOPs x "
+            f"{DRYRUN_RANKS} {rec['dot_flops'] * DRYRUN_RANKS:.4g} beside "
+            f"{6 if sh.kind == 'train' else 2} x active params x tokens {model:.4g}; HBM "
+            f"proxy {rec['hbm_bytes'] / 1e9:.3f} GB; collectives (GB per device) "
+            f"{ {k: round(v / 1e9, 4) for k, v in coll.items()} }, counts "
+            f"{ {k: v for k, v in rec['collectives']['_counts'].items() if v} }")
+        out[f"{arch} {shape}"] = dict(
+            secs=row["secs"], trace_s=rec["trace_s"], memory=mem, dot_flops=rec["dot_flops"],
+            model_flops=model, hbm_bytes=rec["hbm_bytes"], collectives=rec["collectives"])
+    return out
+
+
+#: The sharded train phase: OLMo-1B at full width and depth, 3 AdamW steps
+#: of 4 x 256 tokens at accum 1 and 2, on each mesh of two ranks sharing
+#: the card.  Params in bf16 (fp32 moments): on the (2, 1) mesh each rank
+#: holds the whole state, and the config's fp32 params with their AdamW
+#: step (~38 GB a rank at its peak: state, gradients, their clipped copy
+#: and the new state) would not fit twice on one card.
+STRAIN_ARCH, STRAIN_BATCH, STRAIN_SEQ, STRAIN_STEPS = "olmo_1b", 4, 256, 3
+STRAIN_MESHES, STRAIN_ACCUMS = ((1, 2), (2, 1)), (1, 2)
+#: Bounds against the unsharded run (PERF.md gives the reasons):
+#: the loss to 2e-3 relative (about half a bf16 ulp of each activation,
+#: which a mean over 1,024 tokens does not exceed); grad_norm to 1e-2
+#: relative (the bf16 backward through 16 layers); every param entry to
+#: 2.02 x the summed learning rate of the steps (Adam's update of an entry
+#: whose gradient sits in the rounding noise may take either sign, and
+#: |m_hat / sqrt(v_hat)| <= 1.001 over 3 steps at b1 0.9, b2 0.95 by
+#: Cauchy-Schwarz: at most 1.001 lr a step each way) plus one bf16 ulp of
+#: the entry a step (each step rounds the new param to bf16, and two
+#: updates a hair apart may round to neighbours).
+STRAIN_LOSS_TOL, STRAIN_NORM_TOL, STRAIN_PARAM_FACTOR = 2e-3, 1e-2, 2.02
+#: AdamW's moments, leaf by leaf on each rank's shard, against the
+#: unsharded run's: max |dm| / the leaf's largest |m| and ||dm|| / ||m||
+#: (the same for v) to 0.1.  The param bound above cannot fail (Adam moves
+#: an entry by at most ~lr a step whatever its gradient, and is blind to a
+#: gradient's scale); the moments carry the gradients.  Sound runs read at
+#: most 0.0286 (v, max-based) and 0.0201 (norm-based); a rank's share of a
+#: gradient lost or counted twice moves a leaf's m by ~0.5 of its scale.
+STRAIN_MOMENT_TOL = 0.1
+
+
+def strain_opt():
+    from repro_torch.training.optimizer import make_optimizer
+
+    return make_optimizer("adamw", lr=strain_lr())
+
+
+def strain_lr():
+    from repro_torch.training.optimizer import cosine_schedule
+
+    return cosine_schedule(6e-4, warmup=0, total=STRAIN_STEPS)
+
+
+def strain_lrs() -> list:
+    """The learning rate of each step of the phase."""
+    import torch
+
+    return [strain_lr()(torch.tensor(i)) for i in range(STRAIN_STEPS)]
+
+
+def strain_rank(cfg_fields: dict, spill: str) -> list:
+    """One rank of the sharded train phase (run by ``RankPool``): for each
+    mesh and accumulation, the seed-0 state placed by the policy, the
+    seed-0 batch by its data spec, STRAIN_STEPS steps; each step's loss,
+    grad_norm and ms, the optimizer state's placements, and the local
+    shards of its params and AdamW moments against the unsharded run's
+    (loaded from ``spill``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch.mesh import make_local_mesh, stage_through_host
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.ctx import local_rows, mesh_context, plain
+    from repro_torch.sharding.policy import (
+        distribute,
+        make_policy,
+        placements,
+        spec_at,
+        tree_paths,
+    )
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    staged = stage_through_host()
+    cfg = ModelConfig(**cfg_fields)
+    opt = strain_opt()
+
+    def shard(ref, t):  # this rank's part of the whole ``ref`` for ``t``
+        idx = []
+        for d in range(t.dim()):
+            _, off = local_rows(t, d)
+            idx.append(slice(off, off + t.to_local().shape[d]))
+        return ref[tuple(idx)].to(dev).float()
+
+    host = make_batch(cfg, STRAIN_BATCH, STRAIN_SEQ, seed=SEED)
+    out = []
+    for shape in STRAIN_MESHES:
+        mesh = make_local_mesh(data=shape[0], model=shape[1], device="cuda")
+        pol = make_policy(mesh, cfg)
+        for accum in STRAIN_ACCUMS:
+            kernel_ops.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            state = init_train_state(params, opt, policy=pol)
+            del params
+            torch.cuda.empty_cache()
+            batch = {k: distribute(torch.from_numpy(a).to(dev), mesh,
+                                   pol.data_spec(tuple(a.shape))) for k, a in host.items()}
+            step = make_train_step(cfg, opt, accum=accum)
+            losses, norms, ms = [], [], []
+            for _ in range(STRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with mesh_context(pol.mesh, pol.batch_axes):
+                    state, m = step(state, batch)
+                losses.append(float(plain(m["loss"])))
+                norms.append(float(plain(m["grad_norm"])))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            specs = pol.opt_state_shardings(state["params"], cfg.optimizer)
+            misplaced = [p for p, t in tree_paths(state["opt"])
+                         if list(t.placements) != placements(spec_at(specs, p), mesh)]
+            base = torch.load(os.path.join(spill, f"{accum}.pt"), mmap=True)
+            max_dp, max_excess, sq, n = 0.0, 0.0, 0.0, 0
+            for p, t in tree_paths(state["params"]):
+                loc = t.to_local()
+                want = shard(base[p], t)
+                diff = (loc.float() - want).abs()
+                ulps = STRAIN_STEPS * BF16_ULP * torch.maximum(want.abs(), loc.float().abs())
+                max_dp = max(max_dp, float(diff.max()))
+                max_excess = max(max_excess, float((diff - ulps).max()))
+                sq += float(diff.square().sum())
+                n += diff.numel()
+            # AdamW's moments, leaf by leaf: this rank's shard against the
+            # unsharded run's, max |dm| over the leaf's largest |m| (and the
+            # same for v), and ||dm|| / ||m|| over the shard.
+            ref_opt = torch.load(os.path.join(spill, f"{accum}-opt.pt"), mmap=True)
+            mom = {"m": [0.0, 0.0, ""], "v": [0.0, 0.0, ""]}
+            for p, t in tree_paths(state["opt"]):
+                want = shard(ref_opt["leaves"][p], t)
+                diff = t.to_local().float() - want
+                rel_max = float(diff.abs().max()) / (ref_opt["scale"][p] or 1.0)
+                rel_norm = float(diff.norm()) / (float(want.norm()) or 1.0)
+                w = mom[p.split("/")[0]]
+                if rel_max > w[0]:
+                    w[0], w[2] = rel_max, p
+                w[1] = max(w[1], rel_norm)
+            out.append(dict(rank=rank, mesh=shape, accum=accum, losses=losses, norms=norms,
+                            ms=ms, peak_gb=peak_gb,
+                            misplaced=misplaced, opt_leaves=len(list(tree_paths(state["opt"]))),
+                            max_dp=max_dp, max_excess=max_excess,
+                            rms_dp=math.sqrt(sq / n), moments=mom, staged=staged,
+                            launches=dict(kernel_ops.launches)))
+            del state, batch, base, ref_opt
+            torch.cuda.empty_cache()
+    return out
+
+
+def sharded_train_phase(torch, dev, smi: str) -> dict:
+    """Training under a mesh (see the module doc, 4g)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.ranks import RankPool
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.policy import tree_paths
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    log(f"sharded train: {smi}")
+    released(torch)
+    cfg = dataclasses.replace(get_config(STRAIN_ARCH), param_dtype="bfloat16")
+    opt = strain_opt()
+    param_tol = STRAIN_PARAM_FACTOR * sum(float(lr) for lr in strain_lrs())
+    batch = {k: torch.from_numpy(a).to(dev)
+             for k, a in make_batch(cfg, STRAIN_BATCH, STRAIN_SEQ, seed=SEED).items()}
+    spill = tempfile.mkdtemp(prefix="strain-")
+    base = {}
+    try:
+        for accum in STRAIN_ACCUMS:
+            state = init_train_state(
+                init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev), opt)
+            step = make_train_step(cfg, opt, accum=accum)
+            losses, norms, ms = [], [], []
+            for _ in range(STRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            torch.save({p: t.cpu() for p, t in tree_paths(state["params"])},
+                       os.path.join(spill, f"{accum}.pt"))
+            # The moments in bf16 (half the spill; 2^-9 of an entry at most)
+            # beside each leaf's largest |entry| in fp32.
+            torch.save({"leaves": {p: t.to(torch.bfloat16).cpu()
+                                   for p, t in tree_paths(state["opt"])},
+                        "scale": {p: float(t.abs().max()) for p, t in tree_paths(state["opt"])}},
+                       os.path.join(spill, f"{accum}-opt.pt"))
+            base[accum] = dict(losses=losses, norms=norms, ms=ms)
+            log(f"  unsharded accum {accum}: losses {[round(x, 6) for x in losses]}, "
+                f"grad_norms {[round(x, 5) for x in norms]}, step ms "
+                f"{[round(x, 1) for x in ms]}")
+            del state, step
+        del batch
+        released(torch)
+        stamp("sharded train: unsharded runs done and freed; the ranks start")
+        t0 = time.perf_counter()
+        # Two ranks that each hold the whole state (the (2, 1) mesh) share
+        # the card: expandable segments keep a rank's freed blocks reusable
+        # instead of ~2 GB of fragments each.
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            with RankPool(2, device="cuda", threads=4, timeout_s=600.0) as pool:
+                ranks = pool.run(strain_rank, dataclasses.asdict(cfg), spill)
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    runs = []
+    for r, results in enumerate(ranks):
+        for res in results:
+            b = base[res["accum"]]
+            label = f"rank {r} mesh {res['mesh']} accum {res['accum']}"
+            dl = max(abs(x - y) / abs(y) for x, y in zip(res["losses"], b["losses"]))
+            dn = max(abs(x - y) / abs(y) for x, y in zip(res["norms"], b["norms"]))
+            check(dl <= STRAIN_LOSS_TOL, f"{label}: losses {res['losses']} vs unsharded "
+                  f"{b['losses']}, {dl:.3g} <= {STRAIN_LOSS_TOL} relative")
+            check(dn <= STRAIN_NORM_TOL, f"{label}: grad_norms {res['norms']} vs unsharded "
+                  f"{b['norms']}, {dn:.3g} <= {STRAIN_NORM_TOL} relative")
+            check(res["max_excess"] <= param_tol, f"{label}: params after step {STRAIN_STEPS}: "
+                  f"max |dp| - {STRAIN_STEPS} bf16 ulps {res['max_excess']:.3g} <= "
+                  f"{STRAIN_PARAM_FACTOR} x summed lr {param_tol:.3g} (max |dp| "
+                  f"{res['max_dp']:.3g}, rms {res['rms_dp']:.3g})")
+            for key in ("m", "v"):
+                worst, norm_rel, leaf = res["moments"][key]
+                check(max(worst, norm_rel) <= STRAIN_MOMENT_TOL,
+                      f"{label}: AdamW {key} after step {STRAIN_STEPS}, leaf by leaf: max "
+                      f"|d{key}| / max |{key}| {worst:.3g} ({leaf}), ||d{key}|| / ||{key}|| "
+                      f"{norm_rel:.3g} <= {STRAIN_MOMENT_TOL}")
+            check(not res["misplaced"], f"{label}: every one of {res['opt_leaves']} optimizer-"
+                  f"state leaves in its opt_state_shardings placement ({res['misplaced'][:3]})")
+            check(not any(res["launches"].values()), f"{label}: no kernel launched "
+                  f"({res['launches']})")
+            mm, mv = res["moments"]["m"], res["moments"]["v"]
+            log(f"  {label}: loss rel {dl:.3g}, grad_norm rel {dn:.3g}, max |dp| "
+                f"{res['max_dp']:.3g} (rms {res['rms_dp']:.3g}), moments max |dm| / max |m| "
+                f"{mm[0]:.3g} ({mm[2]}), ||dm|| / ||m|| {mm[1]:.3g}, max |dv| / max |v| "
+                f"{mv[0]:.3g} ({mv[2]}), ||dv|| / ||v|| {mv[1]:.3g}, step ms "
+                f"{[round(x, 1) for x in res['ms']]} (host clock, two ranks sharing one H100 "
+                f"over gloo, not a two-card time), peak {res['peak_gb']:.2f} GB, collectives "
+                f"moved through the host {list(res['staged'])}, launches 0 [{smi}]")
+            runs.append(dict(res, loss_rel=dl, norm_rel=dn))
+    log(f"  sharded train: the ranks took {secs:.1f} s from start to stop")
+    return dict(base=base, runs=runs, param_tol=param_tol, ranks_s=secs)
 
 
 def example_phase() -> dict:
@@ -4602,10 +5020,20 @@ def main() -> int:
         e2e.append(phase(torch, dev))
         phase_s[arch] = time.perf_counter() - t0
         stamp(f"{arch} done in {phase_s[arch]:.1f} s")
+    dry = start_dryrun()
+    stamp("dryrun: started in two processes of its own")
     t0 = time.perf_counter()
     sharded = sharded_phase(torch, dev, smi)
     phase_s["sharded"] = time.perf_counter() - t0
     stamp(f"sharded phase done in {phase_s['sharded']:.1f} s")
+    t0 = time.perf_counter()
+    sharded_train = sharded_train_phase(torch, dev, smi)
+    phase_s["sharded_train"] = time.perf_counter() - t0
+    stamp(f"sharded train phase done in {phase_s['sharded_train']:.1f} s")
+    t0 = time.perf_counter()
+    dryrun = dryrun_phase(torch, smi, sharded["walk"], dry)
+    phase_s["dryrun"] = time.perf_counter() - t0
+    stamp(f"dryrun phase done in {phase_s['dryrun']:.1f} s")
     example = example_phase()
     stamp("serve_partitioned example done")
     training = train_phase(torch, dev, smi)
@@ -4628,7 +5056,7 @@ def main() -> int:
           f"device_ms left out {len(SHORT_WINDOWS)} <= {MAX_SHORT_RUN} profiler windows "
           f"over the run (kernel, events kept, full): {SHORT_WINDOWS}")
     log(f"phase seconds: {json.dumps(phase_s)}; whole run {time.perf_counter() - t_start:.1f} s")
-    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, mla_layer=mla_layer, paths=e2e, sharded=sharded, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
+    log(f"summary: {json.dumps(dict(device=name, nvidia_smi=smi, total_s=time.perf_counter() - t_start, phase_s=phase_s, alexnet=alexnet, mla_layer=mla_layer, paths=e2e, sharded=sharded, dryrun=dryrun, sharded_train=sharded_train, example=example, training=training, fig6=fig6, train_example=train_example, short_windows=SHORT_WINDOWS))}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

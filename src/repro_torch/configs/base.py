@@ -17,10 +17,14 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Iterable
 
 __all__ = [
     "ModelConfig",
+    "InputShape",
+    "INPUT_SHAPES",
     "ARCH_IDS",
+    "all_configs",
     "get_config",
     "get_smoke_config",
 ]
@@ -134,6 +138,102 @@ class ModelConfig:
     def ssm_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
+    def attn_matmul_params(self) -> int:
+        """Matmul parameters of one attention block (GQA or MLA) — the
+        single source for num_params/active_params and the serving
+        benchmarks' per-row decode FLOPs (2 FLOPs per MAC)."""
+        d = self.d_model
+        if self.arch_type not in ("dense", "moe", "vlm", "audio", "hybrid"):
+            return 0
+        if self.use_mla:
+            return (
+                d * self.mla_q_rank
+                + self.mla_q_rank * self.num_heads * self.head_dim
+                + d * (self.mla_kv_rank + self.mla_rope_dim)
+                + self.mla_kv_rank * self.num_heads * (self.head_dim + self.head_dim)
+                + self.num_heads * self.head_dim * d
+            )
+        return d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+
+    def dense_mlp_matmul_params(self) -> int:
+        """Matmul parameters of one dense MLP block."""
+        return (3 if self.mlp_type == "swiglu" else 2) * self.d_model * self.d_ff
+
+    def num_params(self) -> int:
+        """Approximate parameter count (embeddings + trunk), for roofline's
+        MODEL_FLOPS = 6*N*D and memory budgeting."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        attn = self.attn_matmul_params()
+        if self.arch_type == "moe":
+            shared = 3 * d * self.moe_d_ff * self.num_shared_experts
+            routed = 3 * d * self.moe_d_ff * self.num_experts
+            router = d * self.num_experts
+            dense_mlp = 3 * d * ff if ff else 0
+            n_moe = self.num_layers - self.first_k_dense
+            per_layer_moe = attn + shared + routed + router
+            per_layer_dense = attn + dense_mlp
+            trunk = n_moe * per_layer_moe + self.first_k_dense * per_layer_dense
+        elif self.arch_type == "ssm":
+            inner = self.ssm_inner
+            g = self.ssm_num_groups
+            per_layer = (
+                d * (2 * inner + 2 * g * self.ssm_state_dim + self.ssm_num_heads)
+                + inner * d
+            )
+            trunk = self.num_layers * per_layer
+        elif self.arch_type == "hybrid":
+            inner = self.ssm_inner
+            g = self.ssm_num_groups
+            mamba = (
+                d * (2 * inner + 2 * g * self.ssm_state_dim + self.ssm_num_heads)
+                + inner * d
+            )
+            shared_attn = attn + 3 * d * ff  # one shared block, counted once
+            trunk = self.num_layers * mamba + shared_attn
+        else:
+            mlp = self.dense_mlp_matmul_params()
+            trunk = self.num_layers * (attn + mlp)
+            if self.is_encoder_decoder:
+                # encoder layers + decoder cross-attention
+                trunk += self.num_encoder_layers * (attn + mlp) + self.num_layers * attn
+        return emb + trunk
+
+    def active_params(self) -> int:
+        """Parameters touched per token (MoE: top-k + shared only)."""
+        if self.arch_type != "moe":
+            return self.num_params()
+        d = self.d_model
+        attn = self.attn_matmul_params()
+        active_mlp = 3 * d * self.moe_d_ff * (
+            self.experts_per_token + self.num_shared_experts
+        )
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return emb + self.num_layers * (attn + active_mlp + d * self.num_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 
 ARCH_IDS: tuple[str, ...] = ("phi3_mini_3_8b", "mamba2_130m", "zamba2_1_2b",
                              "qwen3_8b", "olmo_1b", "phi3_medium_14b",
@@ -167,3 +267,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def all_configs() -> Iterable[ModelConfig]:
+    for a in ARCH_IDS:
+        yield get_config(a)

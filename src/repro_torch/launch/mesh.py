@@ -4,8 +4,14 @@ A mesh spans the ranks of the initialized default process group, one
 device per rank, with the reference's axes ``("data", "model")``.  The
 mesh's device type is the tensors': ``"cpu"`` under gloo on the CPU,
 ``"cuda"`` on a card.  Two ranks may share one card (gloo moves CUDA
-tensors through the host); NCCL refuses that.  ``make_production_mesh``
-(the 512-chip fleet of the reference's dry run) is not ported yet.
+tensors through the host); NCCL refuses that.
+
+:func:`make_production_mesh` is the production layout: (16, 16) over
+``("data", "model")``, or (2, 16, 16) over ``("pod", "data", "model")``.
+It is a function, so importing this module touches no device or
+process-group state.  :func:`fake_process_group` runs it without 256 ranks:
+this process becomes rank 0 of a group whose collectives move nothing
+(the dry run's group).
 
 DTensor issues its collectives as ``torch.ops._c10d_functional`` ops.
 :func:`stage_through_host` gives those ops CUDA kernels that run the
@@ -17,12 +23,52 @@ asks.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_local_mesh", "mesh_axis_sizes", "mesh_devices", "stage_through_host"]
+__all__ = ["fake_process_group", "make_local_mesh", "make_production_mesh",
+           "mesh_axis_sizes", "mesh_devices", "stage_through_host"]
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production :class:`DeviceMesh` over the default process group:
+    (16, 16) over ``("data", "model")``, or (2, 16, 16) over ``("pod",
+    "data", "model")`` with ``multi_pod``, on ``device``'s type (default:
+    CUDA).  Raises ``ValueError`` unless the group has 256 or 512 ranks
+    to match."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialized process group")
+    n, want = dist.get_world_size(), math.prod(shape)
+    if n != want:
+        raise ValueError(
+            f"the production mesh {shape} needs {want} ranks (256 for one "
+            f"pod, 512 for two), but the process group has {n}")
+    dev_type = "cuda" if device is None else torch.device(device).type
+    return init_device_mesh(dev_type, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int):
+    """A default process group of ``world`` ranks with this process as rank
+    0, whose collectives return at once without moving data (torch's
+    ``"fake"`` backend); destroyed on exit.  Raises if a group is already
+    initialized."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_local_mesh(*, data: int | None = None, model: int | None = None,

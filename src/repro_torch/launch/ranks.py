@@ -17,6 +17,7 @@ import datetime
 import os
 import shutil
 import tempfile
+import time
 import traceback
 
 import torch
@@ -58,7 +59,7 @@ class RankPool:
     ``device``: "cuda" (the ranks' cards round-robin) or "cpu".
     ``threads``: intra-op threads per rank (0 leaves torch's default).
     ``timeout_s``: the group's collective timeout, and how long a call
-    waits for each rank before the pool is torn down."""
+    waits for the ranks' answers before the pool is torn down."""
 
     def __init__(self, world: int, *, device: str = "cuda", threads: int = 1,
                  timeout_s: float = 300.0):
@@ -78,16 +79,24 @@ class RankPool:
         self._collect("start")
 
     def _collect(self, what: str) -> list:
-        out, errors = [], []
-        for rank, conn in enumerate(self._conns):
-            if not conn.poll(self.timeout_s):
+        from multiprocessing.connection import wait
+
+        pending = dict(enumerate(self._conns))
+        out, errors = [None] * self.world, []
+        deadline = time.monotonic() + self.timeout_s
+        while pending:
+            ready = wait(list(pending.values()), max(deadline - time.monotonic(), 0.0))
+            if not ready:
                 self.close()
-                raise TimeoutError(f"rank {rank} gave no answer to {what} "
-                                   f"within {self.timeout_s} s")
-            status, value = conn.recv()
-            if status == "err":
-                errors.append(f"rank {rank}:\n{value}")
-            out.append(value)
+                # A rank that failed leaves the others waiting in a
+                # collective: its traceback is the one to read.
+                raise TimeoutError(f"ranks {sorted(pending)} gave no answer to {what} "
+                                   f"within {self.timeout_s} s\n" + "\n".join(errors))
+            for rank in [r for r, c in pending.items() if c in ready]:
+                status, value = pending.pop(rank).recv()
+                if status == "err":
+                    errors.append(f"rank {rank}:\n{value}")
+                out[rank] = value
         if errors:
             raise RuntimeError(f"{what} failed on {len(errors)} of {self.world} "
                                "ranks\n" + "\n".join(errors))

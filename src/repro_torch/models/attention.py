@@ -180,7 +180,9 @@ def _cache_prefill(cache: dict, new: dict) -> dict:
         vals, fp = _fresh_rows(new, cap, {key: cache[key].dtype for key in new})
         for key, v in vals.items():
             cache[key].copy_(v)
-        cache["pos"].copy_(fp)
+        # Every row's positions are the same: a sharded ring may hold its
+        # positions whole beside a batch-sharded K / V (the policy's spec).
+        cache["pos"].copy_(fp[:1].expand_as(cache["pos"]))
     else:
         for key, v in new.items():
             cache[key][:, :s] = v
@@ -508,7 +510,7 @@ def attn_apply(
         s_enc = k.shape[1]
         k_pos = torch.arange(s_enc, dtype=torch.int32, device=x.device)
         q_pos = torch.full((s,), s_enc, dtype=torch.int32, device=x.device)
-        out = FlashAttention.apply(qg, k, v, q_pos, 0, None, k_pos)
+        out = _local_heads(FlashAttention.apply, qg, k, v, q_pos, 0, None, k_pos)
     elif cache is not None and s > 1:
         if rows is None:
             _cache_prefill(cache, {"k": k, "v": v})
@@ -527,10 +529,10 @@ def attn_apply(
         else:
             decode = kernel_ops.flash_decode if use_kernels else flash_decode_ref
             out = decode(qg.reshape(b, kh * g, hd), cache["k"], cache["v"],
-                         cache["pos"], q_pos, rows, window=window)
+                         cache["pos"], q_pos, rows, window=window)[:, None]
     else:
-        out = FlashAttention.apply(qg, k, v, positions, window)
-    out = out.reshape(b, s, kh * g * hd)
+        out = _local_heads(FlashAttention.apply, qg, k, v, positions, window)
+    out = shard_ctx.merge_dims(out, 2)
     return dense(params["wo"], out, dtype), cache
 
 
@@ -638,18 +640,18 @@ def mla_apply(
                            dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, h, 1, hd + r_rope)
         if cache is None:
-            out = FlashAttention.apply(q_full, k_full, v, positions,
-                                       cfg.sliding_window, scale)
+            out = _local_heads(FlashAttention.apply, q_full, k_full, v, positions,
+                               cfg.sliding_window, scale)
         else:
             new = {"ckv": ckv, "k_rope": k_rope}
             if rows is None:
                 _cache_prefill(cache, new)
             else:
                 _cache_prefill_rows(cache, new, rows)
-            out = prefill_attention(q_full, k_full, v, positions,
-                                    window=cfg.sliding_window, scale=scale)
+            out = _local_heads(prefill_attention, q_full, k_full, v, positions,
+                               window=cfg.sliding_window, scale=scale)
     else:
         _cache_write(cache, {"ckv": ckv, "k_rope": k_rope}, rows, positions)
         out = _mla_decode(params, q_nope, q_rope, cache, cfg, positions, rows, scale)
-    out = out.reshape(b, s, h * hd)
+    out = shard_ctx.merge_dims(out, 2)
     return dense(params["wo"], out, dtype), cache

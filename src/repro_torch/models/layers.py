@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.sharding.ctx import is_dtensor
+from repro_torch.sharding.ctx import is_dtensor, local_part
 
 __all__ = [
     "truncated_normal_",
@@ -57,7 +57,10 @@ def dense(w: torch.Tensor, x: torch.Tensor,
     accumulates in fp32 and rounds once; summing rounded partials would
     move every output by about an ulp.  (DTensor has no rule for a bf16
     product with an fp32 output, ``aten.mm.dtype``.)  Any other sharded
-    product is the plain one in ``dtype``."""
+    product is the plain one in ``dtype``.  A DTensor ``x`` is folded to
+    two dims with its sharded leading dim first (:func:`_dense_folded`)."""
+    if is_dtensor(x) and x.dim() > 2 and w.dim() == 2:
+        return _dense_folded(w, x, dtype)
     if is_dtensor(w):
         from torch.distributed.tensor import Replicate, Shard
 
@@ -72,6 +75,29 @@ def dense(w: torch.Tensor, x: torch.Tensor,
         whole = [Replicate() if p.is_partial() else p for p in y.placements]
         return y.redistribute(y.device_mesh, whole).to(dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def _dense_folded(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`dense` of a DTensor ``x`` of three or more dims.  A product
+    folds ``x``'s leading dims into one, which DTensor (torch 2.11) can do
+    only when the sharded one comes first (a (K, B, S, d) stack of branch
+    states is sharded over B): that dim is moved to the front for the
+    product and back after it, and a second sharded leading dim is
+    gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    lead = x.dim() - 1
+    sharded = sorted({p.dim % x.dim() for p in x.placements
+                      if isinstance(p, Shard) and p.dim % x.dim() < lead})
+    if len(sharded) > 1:
+        keep = sharded[0]
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim % x.dim() not in (keep, lead)
+            else p for p in x.placements])
+    d = sharded[0] if sharded else 0
+    xm = x.movedim(d, 0)
+    y = dense(w, xm.reshape(-1, xm.shape[-1]), dtype)
+    return y.reshape(*xm.shape[:-1], y.shape[-1]).movedim(0, d)
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -191,17 +217,45 @@ def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     raise ValueError(mlp_type)
 
 
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """:func:`embed` of a DTensor table (a sharded segment or train step).
+    Each rank looks its tokens up in its own rows of a vocab-sharded
+    table, zero for a token another rank holds, and the rows are summed
+    across those ranks: one nonzero term, so the lookup is exact.  (DTensor's
+    own embedding rule gives a masked partial whose mask the backward pass
+    cannot take, and an index would gather the whole table.)  The table's
+    other shards (its hidden dim under FSDP) are gathered; the tokens keep
+    their batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_pl = [Replicate() if v or not isinstance(p, Shard) else p
+              for v, p in zip(vocab, tokens.placements)]
+    tab_pl = [Shard(0) if v else Replicate() for v in vocab]
+    loc = local_part(table, tab_pl, [i for i, p in enumerate(tok_pl) if isinstance(p, Shard)])
+    off, width = 0, table.shape[0]  # this rank's first vocab row
+    for i, v in enumerate(vocab):
+        if v:
+            width //= mesh.size(i)
+            off += mesh.get_local_rank(i) * width
+    idx = tokens.redistribute(mesh, tok_pl).to_local() - off
+    inside = (idx >= 0) & (idx < loc.shape[0])
+    rows = loc.to(dtype)[idx.clamp(0, loc.shape[0] - 1)]
+    rows = torch.where(inside[..., None], rows, 0)
+    out = DTensor.from_local(rows, mesh, [Partial() if v else p
+                                          for v, p in zip(vocab, tok_pl)],
+                             run_check=False)
+    return out.redistribute(mesh, tok_pl)
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     if is_dtensor(table):
-        # A vocab-sharded table (a sharded tier): DTensor's embedding rule
-        # looks up each rank's rows, where an index would gather the whole
-        # table.  Its masked partial rows are summed here, once: the mask
-        # they carry is freed by the first reduction, and the embedding
-        # feeds both the residual and the first norm.
-        from torch.distributed.tensor import Replicate
-
-        out = torch.nn.functional.embedding(tokens, table.to(dtype))
-        return out.redistribute(out.device_mesh, [Replicate()] * out.device_mesh.ndim)
+        return _embed_sharded(table, tokens, dtype)
     return table.to(dtype)[tokens]
 

@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.attention import _write_slots, plan_rows
 from repro_torch.models.layers import dense, rmsnorm, silu, truncated_normal_
+from repro_torch.sharding.ctx import is_dtensor, local_rows, merge_dims
 
 __all__ = [
     "init_ssm_state",
@@ -184,6 +185,30 @@ def ssd_step(
     return y, h_new
 
 
+def _ssd_step_local(h_state, x, a, b_vec, c_vec):
+    """:func:`ssd_step` on a DTensor state (a sharded segment), on each
+    rank's shard: the step is independent per (row, head), but its einsums
+    flatten the batch with the heads, which DTensor (torch 2.11) cannot do
+    with both sharded.  Every operand takes the state's row and head (or
+    head-dim) shards, B and C this rank's heads' groups."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, pl = h_state.device_mesh, h_state.placements
+
+    def upto(n):  # the state's shards of the first n dims, the rest whole
+        return [q if isinstance(q, Shard) and q.dim < n else Replicate() for q in pl]
+
+    h_loc = h_state.to_local()
+    _, h0 = local_rows(h_state, 1)
+    rep = h_state.shape[1] // b_vec.shape[1]
+    heads = (h0 + torch.arange(h_loc.shape[1], device=h_loc.device)) // rep
+    b_loc, c_loc = (t.redistribute(mesh, upto(1)).to_local()[:, heads] for t in (b_vec, c_vec))
+    y, h_new = ssd_step(h_loc, x.redistribute(mesh, upto(3)).to_local(),
+                        a.redistribute(mesh, upto(2)).to_local(), b_loc, c_loc)
+    return (DTensor.from_local(y, mesh, upto(3), run_check=False),
+            DTensor.from_local(h_new, mesh, pl, run_check=False))
+
+
 def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor,
                   values: torch.Tensor) -> None:
     """``buf[rows[i]] = values[i]`` in place, sentinel rows (>= Bc)
@@ -269,8 +294,8 @@ def mamba_apply(
         else:
             h_prev = (state["ssm"] if rows is None
                       else state["ssm"][rows.long().clamp(max=bc - 1)])
-            y1, h_new = ssd_step(h_prev, x_dt[:, 0], a_dt[:, 0],
-                                 b_mat[:, 0], c_mat[:, 0])
+            step = _ssd_step_local if is_dtensor(h_prev) else ssd_step
+            y1, h_new = step(h_prev, x_dt[:, 0], a_dt[:, 0], b_mat[:, 0], c_mat[:, 0])
             if rows is None:
                 state["ssm"].copy_(h_new)
             else:
@@ -306,7 +331,7 @@ def mamba_apply(
                     state["ssm"][tgt] = h_last[sel]
 
     y = y + xs.float() * params["D"][:, None]
-    y = y.reshape(bsz, s, inner).to(dtype)
+    y = merge_dims(y, 2).to(dtype)
     y = rmsnorm({"scale": params["norm_scale"]}, y * silu(z))
     return dense(params["out_proj"], y, dtype), state
 

@@ -88,7 +88,7 @@ from repro_torch.models.transformer import (
     stack_init,
     unstack,
 )
-from repro_torch.sharding.ctx import constrain, local
+from repro_torch.sharding.ctx import constrain, is_dtensor, local, local_rows, split_dim
 
 __all__ = [
     "branch_logits_per_head",
@@ -489,11 +489,40 @@ def decode_step(
 
 
 # ---------------------------------------------------------------- train
+def _label_logits(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lf[..., labels]``.  A vocab-sharded DTensor (a sharded train
+    step) picks on each rank's vocab shard, zero where the label lies in
+    another, and the pick is a partial sum over those ranks: DTensor's own
+    rule for the gather (a masked partial) fails to reduce on a batch-
+    sharded operand."""
+    if not is_dtensor(lf):
+        return lf.gather(-1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, nd = lf.device_mesh, lf.dim()
+    pl = list(lf.placements)
+    vocab = [isinstance(p, Shard) and p.dim % nd == nd - 1 for p in pl]
+    lab_pl = [Replicate() if v or not isinstance(p, Shard) else p
+              for v, p in zip(vocab, pl)]
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, lab_pl).to_local().long()
+    loc, off = local_rows(lf, dim=-1)
+    idx = lab - off
+    inside = (idx >= 0) & (idx < loc.shape[-1])
+    picked = loc.gather(-1, idx.clamp(0, loc.shape[-1] - 1)[..., None])[..., 0]
+    picked = torch.where(inside, picked, 0.0)
+    return DTensor.from_local(picked, mesh,
+                              [Partial() if v else p for v, p in zip(vocab, lab_pl)],
+                              run_check=False)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean masked token cross-entropy, fp32 reductions."""
     lf = logits.float()
-    nll = torch.logsumexp(lf, dim=-1) - lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = torch.logsumexp(lf, dim=-1) - _label_logits(lf, labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -541,8 +570,14 @@ def compute_cross_kv(params: dict, enc_out: torch.Tensor,
     stacked (L, B, S_enc, Kh, D)."""
     b, s, _ = enc_out.shape
     shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
-    x = enc_out.reshape(1, b * s, -1)
     xattn = params["blocks"]["xattn"]
+    if is_dtensor(enc_out):
+        # A sharded step: one product per layer, each folding the batch
+        # first (the stacked product would fold it behind the layers).
+        return tuple(torch.stack([
+            split_dim(dense(xattn[w][i], enc_out, enc_out.dtype), -1, shape[-2:])
+            for i in range(cfg.num_layers)]) for w in ("wk", "wv"))
+    x = enc_out.reshape(1, b * s, -1)
     return tuple(dense(xattn[w], x, enc_out.dtype).reshape(shape) for w in ("wk", "wv"))
 
 

@@ -52,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense, silu, truncated_normal_
-from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.ctx import constrain, is_dtensor, local_part
 
 __all__ = ["moe_init", "moe_apply", "router_topk", "expert_slots"]
 
@@ -116,8 +116,11 @@ def router_topk(logits: torch.Tensor, top_k: int
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     e = logits.shape[-1]
     onehot = _one_hot(idx, e, torch.float32)  # (..., top_k, E)
-    frac = onehot.reshape(-1, e).sum(0) / float(math.prod(onehot.shape[:-2]))
-    mean_prob = probs.reshape(-1, e).mean(0)
+    # Sums over the leading dims, not over a flattened view: DTensor cannot
+    # unflatten the gradient of a sharded group axis.
+    frac = onehot.sum(dim=tuple(range(onehot.dim() - 1)))
+    mean_prob = probs.mean(dim=tuple(range(probs.dim() - 1)))
+    frac = frac / float(math.prod(onehot.shape[:-2]))
     aux = e * torch.sum(frac / top_k * mean_prob)
     return w.to(logits.dtype), idx, aux
 
@@ -137,10 +140,85 @@ def expert_slots(idx: torch.Tensor, num_experts: int, cap: int
 
 def _experts_ffn(p: dict, x_e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Per-expert SwiGLU on (G, E, C, d) -> (G, E, C, d): one batched
-    product per expert weight, every group's slots together."""
+    product per expert weight, every group's slots together.  DTensor
+    operands (a sharded segment) run on each rank's experts."""
+    if is_dtensor(x_e):
+        return _experts_ffn_local(p, x_e, dtype)
     g = torch.einsum("gecd,edf->gecf", x_e, p["w_gate"].to(dtype))
     u = torch.einsum("gecd,edf->gecf", x_e, p["w_up"].to(dtype))
     return torch.einsum("gecf,efd->gecd", silu(g) * u, p["w_down"].to(dtype))
+
+
+def _experts_ffn_local(p: dict, x_e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_experts_ffn` on each rank's shards, on local tensors.
+    DTensor's einsum rules flatten the expert axis with the slots, which
+    they cannot split as the policy shards it (a local view that does not
+    exist, or no rule).  Per mesh axis, by the weights' placements:
+
+      * experts sharded: ``x_e`` and the output take the same experts;
+      * the hidden (ff) dim sharded in all three weights: each rank runs
+        its slice of the hidden units and the output is a partial sum
+        (no weight moves);
+      * otherwise the weights are gathered over the axis (the FSDP gather)
+        and ``x_e`` keeps a shard of its groups, or is whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x_e.device_mesh
+
+    def sharded(t):
+        return {i: q.dim for i, q in enumerate(t.placements) if isinstance(q, Shard)}
+
+    gate, up, down = (sharded(p[k]) for k in ("w_gate", "w_up", "w_down"))
+    w_pl = {k: [] for k in ("w_gate", "w_up", "w_down")}
+    x_pl, out_pl, x_partial, w_partial = [], [], [], []
+    for i, q in enumerate(x_e.placements):
+        if gate.get(i) == 0:  # experts
+            x, out, keep = Shard(1), Shard(1), True
+        elif gate.get(i) == 2 and up.get(i) == 2 and down.get(i) == 1:  # hidden
+            x, out, keep = Replicate(), Partial(), True
+            x_partial.append(i)
+        else:
+            x = q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+            out, keep = x, False
+            if isinstance(x, Shard):
+                w_partial.append(i)
+        x_pl.append(x)
+        out_pl.append(out)
+        for k in w_pl:
+            w_pl[k].append(p[k].placements[i] if keep else Replicate())
+    w = {k: local_part(p[k], pl, w_partial) for k, pl in w_pl.items()}
+    y = _experts_ffn(w, local_part(x_e, x_pl, x_partial), dtype)
+    return DTensor.from_local(y, mesh, out_pl, run_check=False)
+
+
+def _combine(comb: torch.Tensor, y_e: torch.Tensor) -> torch.Tensor:
+    """``einsum("gtec,gecd->gtd")``: each token's weighted sum of its slots'
+    outputs.  DTensor operands (a sharded segment) run on each rank's
+    shards: the einsum would flatten the expert axis with the slots, which
+    DTensor (torch 2.11) cannot do with the experts sharded.  ``comb``
+    takes ``y_e``'s expert and group shards; a sum over this rank's
+    experts (or its share of the hidden units) is a partial sum."""
+    if not is_dtensor(y_e):
+        return torch.einsum("gtec,gecd->gtd", comb, y_e)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = y_e.device_mesh
+    if not is_dtensor(comb):
+        comb = DTensor.from_local(comb, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    y_pl, c_pl, out_pl = [], [], []
+    for q, cq in zip(y_e.placements, comb.placements):
+        if isinstance(q, Shard) and q.dim == 1:  # experts
+            y_pl.append(q), c_pl.append(Shard(2)), out_pl.append(Partial())
+        elif q.is_partial():  # the hidden units' partial sums
+            y_pl.append(q), c_pl.append(Replicate()), out_pl.append(Partial())
+        elif isinstance(q, Shard) and q.dim == 0 or isinstance(cq, Shard) and cq.dim == 0:
+            y_pl.append(Shard(0)), c_pl.append(Shard(0)), out_pl.append(Shard(0))
+        else:
+            y_pl.append(Replicate()), c_pl.append(Replicate()), out_pl.append(Replicate())
+    partial = [i for i, q in enumerate(y_e.placements) if q.is_partial()]
+    y = torch.einsum("gtec,gecd->gtd", local_part(comb, c_pl, partial),
+                     local_part(y_e, y_pl))
+    return DTensor.from_local(y, mesh, out_pl, run_check=False)
 
 
 def moe_apply(
@@ -190,7 +268,7 @@ def moe_apply(
         x_e = constrain(x_e, ".v..")
         y_e = _experts_ffn(params, x_e, dtype)
         comb = (disp * w[..., None, None]).sum(2)  # (G, T, E, C)
-        yg = torch.einsum("gtec,gecd->gtd", comb, y_e)
+        yg = _combine(comb, y_e)
     else:
         # The owner table: which token fills each (expert, slot), the pad
         # index gsz where none does.  Every write lands in range: dropped

@@ -664,14 +664,8 @@ class TierExecutor:
         counted as replicated.  A null context without a mesh."""
         if not self.sharded:
             return contextlib.nullcontext()
-        from torch.distributed.tensor.experimental import implicit_replication
-
         pol = self.policy
-        stack = contextlib.ExitStack()
-        stack.enter_context(shard_ctx.activation_sharding(
-            pol.mesh, pol.batch_axes, pol.model_axis))
-        stack.enter_context(implicit_replication())
-        return stack
+        return shard_ctx.mesh_context(pol.mesh, pol.batch_axes, pol.model_axis)
 
     # ---------------------------------------------------- host <-> device
     def _upload(self, value, dtype: torch.dtype) -> torch.Tensor:

@@ -26,8 +26,8 @@ import torch
 
 from repro_torch.launch.mesh import mesh_axis_sizes
 
-__all__ = ["activation_sharding", "constrain", "is_dtensor", "local_rows", "plain",
-           "like", "local", "split_dim", "to_layout_of"]
+__all__ = ["activation_sharding", "constrain", "mesh_context", "is_dtensor", "local_rows", "plain",
+           "like", "local", "local_part", "merge_dims", "split_dim", "to_layout_of"]
 
 _ACTIVE: tuple | None = None
 
@@ -41,6 +41,17 @@ def activation_sharding(mesh, batch_axes: tuple[str, ...], model_axis: str = "mo
         yield
     finally:
         _ACTIVE = prev
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, batch_axes: tuple[str, ...], model_axis: str = "model"):
+    """The context a sharded step runs in: :func:`activation_sharding`,
+    with plain tensors meeting DTensors counted as replicated (DTensor's
+    ``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with activation_sharding(mesh, batch_axes, model_axis), implicit_replication():
+        yield
 
 
 def layout_spec(layout: str, shape, batch_axes, model_axis: str, sizes) -> tuple:
@@ -95,6 +106,42 @@ def split_dim(x: torch.Tensor, dim: int, sizes: tuple[int, ...]) -> torch.Tensor
                 pl[i] = Replicate()
             x = x.redistribute(x.device_mesh, pl)
     return x.reshape(shape)
+
+
+def merge_dims(x: torch.Tensor, start: int) -> torch.Tensor:
+    """``x`` with dims ``start`` .. last flattened into one.  A DTensor is
+    flattened on each rank's local tensor, sharded at most on the first of
+    those dims (a shard of a later one is gathered first): DTensor's own
+    view gives the backward pass a gradient sharded over the merged dim,
+    which it cannot unflatten when the shard splits the first dim unevenly
+    (2 KV heads over 4 ranks).  A plain tensor is reshaped."""
+    start %= x.dim()
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:start], -1)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % x.dim() > start else p
+          for p in x.placements]
+    loc = x.redistribute(mesh, pl).to_local()
+    loc = loc.reshape(*loc.shape[:start], -1)
+    return DTensor.from_local(loc, mesh, pl, run_check=False)
+
+
+def local_part(x: torch.Tensor, placements, partial_grad=()) -> torch.Tensor:
+    """``x`` (a DTensor) redistributed to ``placements`` and taken as this
+    rank's local tensor, for a call site that computes on local tensors.
+    Where the other operands of that computation are sharded over mesh dim
+    i (the batch) and ``x`` is not, each rank's gradient of ``x`` is its
+    share of a sum: list those dims in ``partial_grad`` and the backward
+    pass reduces them (DTensor would read the local gradients as whole).
+    Where ``x`` is taken as a partial sum, each rank's term has the whole
+    gradient (``Replicate``)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    grad = [Partial() if i in partial_grad else Replicate() if p.is_partial() else p
+            for i, p in enumerate(placements)]
+    return x.redistribute(x.device_mesh, placements).to_local(grad_placements=grad)
 
 
 def local_rows(x: torch.Tensor, dim: int = 0):

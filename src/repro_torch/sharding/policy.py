@@ -47,6 +47,7 @@ __all__ = [
     "make_policy",
     "param_shapes",
     "placements",
+    "spec_at",
     "tree_paths",
 ]
 
@@ -80,6 +81,14 @@ def tree_paths(tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
             yield from tree_paths(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
+
+
+def spec_at(specs, path: str) -> Spec:
+    """The spec at ``path`` of a tree of specs (nested dicts whose leaves
+    are spec tuples, as :meth:`ShardingPolicy.opt_state_shardings` gives)."""
+    for key in path.split("/"):
+        specs = specs[key]
+    return specs
 
 
 def _map_paths(fn, tree, prefix: str = ""):
@@ -252,6 +261,14 @@ class ShardingPolicy:
         return _map_paths(
             lambda p, t: distribute(t, self.mesh, self.cache_spec(p, t.shape)),
             caches)
+
+    def shard_opt_state(self, opt_state, params, optimizer_name: str) -> Any:
+        """Place a concrete optimizer state tree (``opt.init`` of the
+        params) per :meth:`opt_state_shardings`, as :meth:`shard_params`
+        places the params."""
+        specs = self.opt_state_shardings(params, optimizer_name)
+        return _map_paths(
+            lambda p, t: distribute(t, self.mesh, spec_at(specs, p)), opt_state)
 
     # ------------------------------------------------------------ optimizer
     def opt_state_shardings(self, params_shapes, optimizer_name: str) -> Any:

@@ -60,8 +60,8 @@ def adamw(
     lr_fn = _lr_fn(lr)
 
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):  # a DTensor param's moments take its placements
+            return torch.zeros_like(p, dtype=torch.float32)
 
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
@@ -71,13 +71,17 @@ def adamw(
         lr_t = lr_fn(step)
 
         def upd(g, m, v, p):
+            # The reference's arithmetic op for op; the in-place steps act
+            # on temporaries only, so that a leaf's update holds fewer fp32
+            # copies of it at once.
             g = g.float()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mhat = m / (1 - b1 ** stepf)
-            vhat = v / (1 - b2 ** stepf)
-            delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
-            return (p.float() - lr_t * delta).to(p.dtype), m, v
+            m = (b1 * m).add_((1 - b1) * g)
+            v = (b2 * v).add_(((1 - b2) * g).mul_(g))
+            denom = torch.sqrt(v / (1 - b2 ** stepf)).add_(eps)
+            delta = (m / (1 - b1 ** stepf)).div_(denom)
+            del denom
+            delta = delta.add_(weight_decay * p.float()).mul_(lr_t)
+            return torch.sub(p.float(), delta).to(p.dtype), m, v
 
         out = tree_map(upd, grads, state["m"], state["v"], params)
         return _part(out, 0, 3), {"m": _part(out, 1, 3), "v": _part(out, 2, 3)}
