@@ -1,0 +1,20 @@
+"""Pytest settings of the benchmark's own tests (``bench/tests``)."""
+
+import pytest
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA H100; run on the chip with "
+        "`python3 -m pytest -q -m card bench/tests`")
+
+
+@pytest.fixture
+def card():
+    """Skips the test unless a CUDA card is present (decided in the test,
+    never at import)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip: python3 -m pytest -q -m card bench/tests)")
+    return torch.device("cuda")
