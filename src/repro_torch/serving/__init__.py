@@ -9,6 +9,8 @@
                                  -> hot swap
     LinkFaultModel / HopPolicy   seeded hop faults + retry / breaker policy
                                  (degraded steps, the edge fallback)
+    Tracer / Span                in-memory spans of the scheduler and
+                                 the tier runtime
 """
 
 from repro_torch.serving.controller import (
@@ -44,6 +46,7 @@ from repro_torch.serving.tiers import (
     segments_for_cuts,
     transfer_seconds,
 )
+from repro_torch.serving.trace import Span, Tracer
 
 __all__ = [
     "CircuitBreaker",
@@ -65,10 +68,12 @@ __all__ = [
     "ServesRequests",
     "SegmentFn",
     "ServingEngine",
+    "Span",
     "StepReport",
     "TierExecutor",
     "TierSegment",
     "TierStepResult",
+    "Tracer",
     "bytes_per_sequence",
     "exit_distribution",
     "exit_drift_kl",

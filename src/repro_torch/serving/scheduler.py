@@ -35,6 +35,9 @@ a broken hop (``degraded``: the token is real, the request's
 (``failed``: no token).  A failed slot is always reclaimed; its request
 retires ``"failed"``, or with ``requeue_on_fail`` goes back to the head of
 the queue (at most ``max_requeues`` times) for a fresh admission.
+
+``server.trace(tracer)`` turns on the spans of
+:mod:`repro_torch.serving.trace` in the scheduler and its executor.
 """
 
 from __future__ import annotations
@@ -176,6 +179,9 @@ class RequestScheduler:
         self.results: dict[int, RequestResult] = {}
         self.finished: list[int] = []
         self.total_tokens = 0
+        #: A :class:`~repro_torch.serving.trace.Tracer` while tracing
+        #: (``ServesRequests.trace``); None = off.
+        self.tracer = None
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new_tokens: int, *,
@@ -243,11 +249,18 @@ class RequestScheduler:
             for i, req in enumerate(group):
                 toks[i] = req.prompt
                 row_ids[i] = rows[i]
+            tr = self.tracer
+            if tr is not None:
+                sp = tr.open("admit.prefill", tuple(r.rid for r in group), plen=plen, rows=n)
+                for req in group:
+                    tr.record("request.queued", round(req.arrival_s * 1e9), sp.t0, (req.rid,))
             self.caches, tok0 = self.executor.prefill_rows(
                 self.caches, toks, row_ids)
             # First decode input stays on the device: no sync at admission.
             self.tok_dev[torch.as_tensor(rows, device=self.device), 0] = \
                 tok0[: len(group)]
+            if tr is not None:
+                tr.close(sp)
             for slot, req in zip(rows, group):
                 self.active[slot] = True
                 self.pos[slot] = plen
@@ -264,8 +277,23 @@ class RequestScheduler:
         """Admit into freed rows, then run one decode step over the live
         slots.  Returns None when there is nothing to decode (an idle tick
         still advances the step clock toward held arrivals)."""
+        tr = self.tracer
+        sp = None if tr is None else tr.open("sched.step", step=self.step_count)
+        try:
+            rep = self._step(tr)
+            if tr is not None:
+                tr.note(live=rep.live if rep else 0, admitted=len(rep.admitted) if rep else 0)
+            return rep
+        finally:
+            if tr is not None:
+                tr.close(sp)
+
+    def _step(self, tr) -> SchedulerStepReport | None:
         self._mark_arrivals()
+        sp = None if tr is None else tr.open("sched.admit")
         admitted = self._admit()
+        if tr is not None:
+            tr.close(sp)
         if not self.active.any():
             if self.queue:
                 self.step_count += 1
@@ -283,6 +311,7 @@ class RequestScheduler:
         fail_mask = getattr(res, "failed", None)
         self.tok_dev = res.tokens_dev[:, None]
 
+        sp = None if tr is None else tr.open("sched.retire")
         emitted: dict[int, int] = {}
         retired: list[int] = []
         degraded: list[int] = []
@@ -336,6 +365,8 @@ class RequestScheduler:
                            np.int32)
             rows[: len(retired)] = [self.results[r].slot for r in retired]
             self.caches = self.executor.reset_rows(self.caches, rows)
+        if tr is not None:
+            tr.close(sp)
         report = SchedulerStepReport(
             step=self.step_count, live=live, admitted=admitted,
             retired=tuple(retired), emitted=emitted,
@@ -395,3 +426,8 @@ class ServesRequests:
 
     def drain(self) -> list[RequestResult]:
         return self.scheduler.drain()
+
+    def trace(self, tracer) -> None:
+        """Hand a :class:`~repro_torch.serving.trace.Tracer` to the
+        scheduler and the executor (None takes it away: tracing off)."""
+        self.scheduler.tracer = self.executor.tracer = tracer

@@ -84,6 +84,12 @@ What the port changes, and why:
   * **The single fetch** packs every fetched tensor into one int32 buffer,
     so a step costs one device-to-host copy, as the reference's one
     ``device_get`` does.
+  * **Spans** (``tracer``, :mod:`repro_torch.serving.trace`): while a
+    tracer is attached a step records ``tiers.step`` and inside it
+    ``tiers.plan``, ``tiers.snapshot``, one ``tiers.segment`` per segment
+    call, ``tiers.fetch``, ``tiers.rerun`` per overflow re-run and
+    ``tiers.report``, with CUDA events around each graph replay and the
+    snapshot's clones; without one, nothing.
 
 Probe steps (the reference's exploration contract): ``probe_next = True``
 makes the next step evaluate every ``cfg.branch_layers`` head; the extra
@@ -609,6 +615,9 @@ class TierExecutor:
         self.replays: dict[tuple, int] = {}
         self._fn_cache: dict[tuple, SegmentFn] = {}
         self._stream = None  # the capture stream, made at the first capture
+        #: A :class:`~repro_torch.serving.trace.Tracer` while tracing; None
+        #: = off.
+        self.tracer = None
         self.install(segments)
 
     # -------------------------------------------------------------- plan
@@ -851,7 +860,10 @@ class TierExecutor:
             () if probe_rows is None else (probe_rows,))
         sig = (pos_t.dim(), tuple(x.shape), shapes)
         var = fn.variants.get(sig)
+        tr = self.tracer
         if not self.graphs:
+            if tr is not None:
+                tr.note(mode="eager")
             if var is None:
                 fn.variants[sig] = True
                 self.trace_counts[fn.key] = self.trace_counts.get(fn.key, 0) + 1
@@ -859,10 +871,17 @@ class TierExecutor:
         if var is not None and var.binding == binding:
             for buf, a in zip(var.inputs, args):
                 buf.copy_(a)
+            if tr is not None:
+                tr.note(mode="replay")
+                ev = tr.events_start()
             var.graph.replay()
+            if tr is not None:
+                tr.events_stop(ev)
             kernel_ops.add_launches(var.launches)
             self.replays[fn.key] = self.replays.get(fn.key, 0) + 1
             return var.out
+        if tr is not None:
+            tr.note(mode="capture")
         out, fn.variants[sig] = self._capture(fn, args, caches, binding)
         self.trace_counts[fn.key] = self.trace_counts.get(fn.key, 0) + 1
         return out
@@ -953,6 +972,19 @@ class TierExecutor:
                     bufs[k][idxs[k]] = v
         for t, v in lengths:
             t.copy_(v)
+
+    def _traced_snapshot(self, caches, pos_t, tr):
+        """:meth:`_snapshot` in a ``tiers.snapshot`` span (on CUDA its
+        clones between CUDA events), with the bytes it cloned."""
+        sp = tr.open("tiers.snapshot")
+        ev = tr.events_start() if self.device.type == "cuda" else None
+        snap = saved, lengths = self._snapshot(caches, pos_t)
+        if ev is not None:
+            tr.events_stop(ev)
+        nbytes = (sum(v.nbytes for _, _, vals in saved for v in vals.values())
+                  + sum(v.nbytes for _, v in lengths))
+        tr.close(sp, bytes=nbytes)
+        return snap
 
     # ---------------------------------------------- buckets and probes
     def _plan_buckets(self, batch: int) -> dict[int, int]:
@@ -1156,8 +1188,13 @@ class TierExecutor:
             deg = degrade[1] if degrade is not None and i == degrade[0] else None
             fn = self._segment_fn(seg, head, None if b is None else min(b, batch),
                                   pr, probe_m if sampled else None, deg)
+            tr = self.tracer
+            sp = (None if tr is None else tr.open(
+                "tiers.segment", index=i, bucket=batch if fn.bucket is None else fn.bucket))
             out = self.call_segment(fn, x, pos_t, exited, chosen, caches, layout,
                                     probe_rows if sampled else None)
+            if tr is not None:
+                tr.close(sp)
             exited, chosen = out["exited"], out["chosen"]
             if seg.branches:
                 fetch[f"take{i}"] = out["take"]
@@ -1190,7 +1227,11 @@ class TierExecutor:
         fetch, chosen, logits = self.dispatch(tok, pos_t, caches, buckets,
                                               exited0, probe_map, probe_rows,
                                               probe_m, degrade)
+        tr = self.tracer
+        sp = None if tr is None else tr.open("tiers.fetch")
         host = self._fetch(fetch)
+        if tr is not None:
+            tr.close(sp)
         exited_run = (np.zeros((batch,), bool) if active_np is None
                       else ~active_np)
         alive_after_seg = {}
@@ -1248,10 +1289,20 @@ class TierExecutor:
         tokens (on the device, or host values); ``pos`` the shared step
         position or a per-sequence (B,) vector; ``active`` (B,) marks live
         slots (dead slots enter pre-exited)."""
-        with self.mesh_context():
-            return self._step(tok, pos, caches, active)
+        tr = self.tracer
+        sp = None
+        if tr is not None:
+            sp = tr.open("tiers.step")
+            if self.device.type == "cuda":
+                tr.stream = torch.cuda.current_stream(self.device)
+        try:
+            with self.mesh_context():
+                return self._step(tok, pos, caches, active, tr)
+        finally:
+            if tr is not None:
+                tr.close(sp)
 
-    def _step(self, tok, pos, caches: dict, active) -> tuple[TierStepResult, dict]:
+    def _step(self, tok, pos, caches: dict, active, tr) -> tuple[TierStepResult, dict]:
         cfg = self.cfg
         batch = tok.shape[0]
         active_np = None if active is None else np.array(active, dtype=bool)
@@ -1267,6 +1318,7 @@ class TierExecutor:
                 if degrade is None:
                     return self._failed_step(batch, active_np, live, outcomes,
                                              events, broken), caches
+        sp = None if tr is None else tr.open("tiers.plan")
         tok = self._upload(tok, torch.int32)
         pos_t = self._upload(pos, torch.int32)
         exited0 = None if active_np is None else self._upload(~active_np, torch.bool)
@@ -1278,8 +1330,12 @@ class TierExecutor:
             if sel is not None:
                 probe_rows = self._upload(sel, torch.int32)
         buckets = self._plan_buckets(batch)
-        snap = (self._snapshot(caches, pos_t)
-                if any(b < batch for b in buckets.values()) else None)
+        if tr is not None:
+            tr.close(sp)
+        snap = None
+        if any(b < batch for b in buckets.values()):
+            snap = (self._snapshot(caches, pos_t) if tr is None
+                    else self._traced_snapshot(caches, pos_t, tr))
         run = (tok, pos_t, caches)
         extra = (exited0, active_np, probe_map, probe_rows, probe_m, degrade)
         host, entering, chosen, logits, alive, exited_plan = self._run_once(
@@ -1291,6 +1347,7 @@ class TierExecutor:
         # last resort is full-batch buckets).
         attempts = 0
         while any(entering[i] > used[i] for i in entering):
+            sp = None if tr is None else tr.open("tiers.rerun")
             self.overflow_retries += 1
             attempts += 1
             if attempts >= len(self.segments):
@@ -1305,6 +1362,10 @@ class TierExecutor:
             host, entering, chosen, logits, alive, exited_plan = self._run_once(
                 *run, buckets, *extra)
             used = {i: min(buckets.get(i, batch), batch) for i in entering}
+            if tr is not None:
+                tr.close(sp)
+        if tr is not None:
+            tr.open("tiers.report")  # closed with tiers.step
         self._observe_hints(entering)
         if self.graphs:
             # Graph outputs are rewritten by the next replay: the step's
