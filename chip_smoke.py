@@ -107,7 +107,9 @@ exit) if any phase fails:
      every kernel of the path launched.  The served step replays a CUDA
      graph per cached segment: each run is held bitwise (tokens, exit
      masks, takes, entropies, logits, buckets, re-runs) against a
-     ``graphs=False`` twin serving the same requests, at the median
+     ``graphs=False`` twin serving the same requests (where the graphed
+     side replays its admission rungs, the twin calls the same padded body
+     directly), at the median
      threshold with the hints pinned low at the third step (a forced
      overflow re-run on both), no key may be captured twice in a run, and
      the decode step's host-clock ms, device ms per step (profiler), idle
@@ -2764,7 +2766,8 @@ def fault_phases(torch, dev, cfg, wparams, net) -> tuple[list, dict]:
             run["statuses"] = statuses
             if graphs is None:
                 ex = srv.executor
-                deg_keys = {k: n for k, n in ex.trace_counts.items() if k[0][6] is not None}
+                deg_keys = {k: n for k, n in ex.trace_counts.items()
+                            if k[0] != "prefill" and k[0][6] is not None}
                 deg_replays = sum(ex.replays.get(k, 0) for k in deg_keys)
                 check(deg_keys and {k[0][6] for k in deg_keys} == {18}
                       and all(n == 1 for n in deg_keys.values()) and deg_replays > 0,

@@ -33,6 +33,7 @@ Writes with sentinel rows never map a dropped row onto a real one (torch's
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +51,7 @@ __all__ = [
     "mla_apply",
     "prefill_attention",
     "NEG_INF",
+    "PaddedPrompt",
 ]
 
 NEG_INF = -1e30
@@ -207,13 +209,64 @@ def plan_rows(rows, bc: int, device):
     return keep.to(device), rows[keep].to(device)
 
 
+class PaddedPrompt(NamedTuple):
+    """A device-side admission plan: one prompt, padded on the right to the
+    length its tokens have, whose first ``length`` positions are real and
+    whose state lands in cache row ``row``.  Both are (1,) int64 tensors on
+    the device, so a prefill under this plan makes no host sync and can be
+    captured in a CUDA graph; a ``row`` >= the batch is a sentinel, whose
+    writes leave every row as it was."""
+
+    row: torch.Tensor
+    length: torch.Tensor
+
+
+def write_row(buf: torch.Tensor, row: torch.Tensor, head: torch.Tensor,
+              fill: float = 0) -> None:
+    """Set row ``row`` of ``buf`` in place, sync-free (``row`` (1,) on the
+    device): its leading slots along dim 1 to ``head[0]`` (``head``: (1,
+    s, ...)), every later slot to ``fill``.  The row index is clamped into
+    the batch, and a sentinel (>= the batch) writes back what the clamped
+    row holds.  One row is read and written, whatever the batch."""
+    bc, s = buf.shape[0], head.shape[1]
+    r = row.clamp(max=bc - 1)
+    live = (row < bc).reshape(1, *([1] * (buf.dim() - 1)))
+    out = buf.index_select(0, r)
+    out[:, :s] = torch.where(live, head.to(buf.dtype), out[:, :s])
+    out[:, s:].masked_fill_(live, fill)
+    buf.index_copy_(0, r, out)
+
+
+def _cache_prefill_padded(cache: dict, new: dict, plan: PaddedPrompt) -> dict:
+    """:func:`_cache_prefill_rows` of one right-padded prompt under a
+    device-side plan: row ``plan.row`` ends as a fresh cache that just
+    prefilled the prompt's ``plan.length`` real positions (their payload at
+    slots 0..L-1, payload 0 and position -1 in every slot past them), the
+    padding dropped.  ``new``: {leaf name: (1, S, ...)}, S at most the
+    ring's capacity, so no slot wraps (a prompt as long as the ring fills
+    it in order, which the roll of :func:`_fresh_rows` leaves as it is)."""
+    first = next(iter(new.values()))
+    s, cap = first.shape[1], cache["pos"].shape[1]
+    if s > cap:
+        raise ValueError(f"a padded prompt of {s} positions overflows a ring of {cap}")
+    slot = torch.arange(s, device=first.device)
+    real = slot < plan.length  # (S,)
+    for key, v in new.items():
+        write_row(cache[key], plan.row,
+                  torch.where(real.reshape(1, s, *([1] * (v.dim() - 2))), v, 0))
+    write_row(cache["pos"], plan.row, torch.where(real, slot, -1)[None], fill=-1)
+    return cache
+
+
 def _cache_prefill_rows(cache: dict, new: dict, rows) -> dict:
     """Row-targeted prompt prefill: row ``rows[i]`` ends exactly as a fresh
     cache that just prefilled prompt i (slots past the prompt reset to
     empty; ``new``: {leaf name: (n, S, ...)}).  ``rows`` is the host-side
-    admission plan (:func:`plan_rows`).  Other rows and ``length`` are
-    untouched.  A DTensor ring (a sharded segment) is written on each
-    rank's shard; its batch must not be sharded."""
+    admission plan (:func:`plan_rows`), or a :class:`PaddedPrompt`.  Other
+    rows and ``length`` are untouched.  A DTensor ring (a sharded segment)
+    is written on each rank's shard; its batch must not be sharded."""
+    if isinstance(rows, PaddedPrompt):
+        return _cache_prefill_padded(cache, new, rows)
     if shard_ctx.is_dtensor(cache["pos"]):
         from torch.distributed.tensor import Shard
 

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.attention import _write_slots, plan_rows
+from repro_torch.models.attention import PaddedPrompt, _write_slots, plan_rows, write_row
 from repro_torch.models.layers import dense, rmsnorm, silu, truncated_normal_
 from repro_torch.sharding.ctx import is_dtensor, local_rows, merge_dims
 
@@ -240,7 +240,11 @@ def mamba_apply(
         start from a fresh zero state — exactly a solo prefill — and their
         conv windows and final states land in rows ``rows`` (sentinels
         dropped on the host); ``length`` is untouched.  Under
-        ``use_kernels`` the scan is the Hopper ``ssd_scan`` kernel;
+        ``use_kernels`` the scan is the Hopper ``ssd_scan`` kernel.  Under
+        a device-side :class:`~repro_torch.models.attention.PaddedPrompt`
+        the one prompt's pad positions carry dt = 0, so they leave the
+        state as the last real position left it, and the conv window is
+        gathered at the real length on the device;
       * state, S == 1: the decode step, ``length += 1``.  ``rows`` (a
         device tensor) maps the compacted sub-batch onto state rows.  Under
         ``use_kernels`` the step is the Hopper ``ssd_update`` kernel,
@@ -277,6 +281,10 @@ def mamba_apply(
 
     v = dt_raw.float() + params["dt_bias"]
     dt = torch.logaddexp(v, torch.zeros_like(v))  # jax.nn.softplus
+    if isinstance(rows, PaddedPrompt):
+        # Pad positions: x * dt = 0 and A * dt = 0, a step that keeps the state.
+        real = torch.arange(s, device=x.device) < rows.length
+        dt = torch.where(real[None, :, None], dt, 0.0)
     a_neg = -torch.exp(params["A_log"])  # (H,)
     x_dt = xs.float() * dt[..., None]
     a_dt = dt * a_neg  # (B, S, H)
@@ -315,7 +323,14 @@ def mamba_apply(
         else:
             y, h_last = ssd_chunked(x_dt, a_dt, b_mat, c_mat, cfg.ssm_chunk,
                                     h0=h0)
-        if state is not None:
+        if isinstance(rows, PaddedPrompt):
+            # The raw xBC of the last W-1 real positions, zeros before 0.
+            at = rows.length - (w - 1) + torch.arange(w - 1, device=x.device)
+            tail = torch.where((at >= 0)[None, :, None],
+                               xbc.index_select(1, at.clamp(min=0)), 0.0)
+            write_row(state["conv"], rows.row, tail)
+            write_row(state["ssm"], rows.row, h_last)
+        elif state is not None:
             # Raw (pre-conv) xBC inputs of the last W-1 positions seed the
             # decode-time conv window; left-pad a shorter sequence.
             conv_tail = F.pad(xbc, (0, 0, max(0, (w - 1) - s), 0))[:, -(w - 1):]

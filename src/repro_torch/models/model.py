@@ -69,6 +69,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.calibration import normalized_entropy
 from repro_torch.kernels.ops import resolve_device, resolve_use_kernels
+from repro_torch.models.attention import PaddedPrompt
 from repro_torch.models.layers import (
     dense,
     embed,
@@ -278,7 +279,8 @@ def run_trunk(
     layer it follows, so a cut after site s keeps s on the lower tier.
     ``rows``: h is a sub-batch whose stateful reads and writes go to those
     rows of the full-batch caches (decode: a device tensor with
-    out-of-bounds sentinels; prefill: a host-side plan).  ``remat``: each
+    out-of-bounds sentinels; prefill: a host-side plan, or a
+    :class:`~repro_torch.models.attention.PaddedPrompt`).  ``remat``: each
     trunk layer is recomputed in the backward pass (the shared block is
     not, as in the reference).  ``moe_dispatch``: the MoE blocks' dispatch
     mode (:func:`repro_torch.models.moe.moe_apply`).  ``cross_kv``: the
@@ -404,12 +406,23 @@ def prefill(
     (continuous-batching admission, a host-side plan): prompt row i
     prefills cache row ``rows[i]`` in place, ending exactly as a fresh
     solo prefill; sentinel rows (>= B) drop their writes and the step
-    counter is untouched (not for ``audio``, as in the reference).
-    ``use_kernels``: the admission scan of a Mamba2 layer runs in the
-    Hopper ``ssd_scan`` kernel."""
+    counter is untouched (not for ``audio``, as in the reference).  A
+    :class:`~repro_torch.models.attention.PaddedPrompt` plan is the same
+    for one prompt padded on the right, with its row and true length L on
+    the device (a graph-capturable admission): its cache row ends as the
+    unpadded prompt's would, and the logits are those at position L - 1.
+    Pad positions come after every real one, so no real position reads
+    them; a routed-expert trunk would let them take expert capacity, and
+    raises.  ``use_kernels``: the admission scan of a Mamba2 layer runs in
+    the Hopper ``ssd_scan`` kernel."""
     if rows is not None and cfg.arch_type == "audio":
         raise NotImplementedError(
             "row-targeted prefill does not cover encoder cross-KV caches")
+    padded = isinstance(rows, PaddedPrompt)
+    if padded and (patch_embeds is not None
+                   or any(kind.mlp == "moe" for _, kind, _ in trunk_layout(cfg))):
+        raise NotImplementedError(
+            "a padded prompt covers text trunks without routed experts")
     inputs = {"tokens": tokens}
     if patch_embeds is not None:
         inputs["patch_embeds"] = patch_embeds
@@ -426,6 +439,10 @@ def prefill(
                                  use_kernels=use_kernels)
     if rows is None:
         local(caches["length"]).fill_(h.shape[1])  # each rank's copy, when sharded
+    if padded:
+        last = norm_apply(cfg.norm_type, params["final_norm"],
+                          h2.index_select(1, rows.length - 1))
+        return _unembed(params, last, cfg), caches
     hf = norm_apply(cfg.norm_type, params["final_norm"], h2)
     return constrain(_unembed(params, hf[:, -1:], cfg), "b.v"), caches
 

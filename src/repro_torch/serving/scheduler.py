@@ -17,6 +17,11 @@ full-batch-resident KV rows:
 It keeps the runtime's two contracts: one device-to-host sync per decode
 step (admission leaves the first input token on the device), and each
 request's token/exit trajectory independent of its slot and neighbours.
+On the card a prompt of up to 1,024 tokens is admitted with no host sync
+at all: it replays the executor's admission graph of its length rung
+(padded inside the executor, so the scheduler still passes the prompts
+as they are; ``TierExecutor.padded_admission``), and every index
+admission uploads goes up pinned, without blocking.
 The next step's input token is the step result's ``tokens_dev``, which
 the executor hands out as a tensor of its own (under CUDA graphs a clone
 of the graph's output), so admission may write into it.
@@ -256,9 +261,9 @@ class RequestScheduler:
                     tr.record("request.queued", round(req.arrival_s * 1e9), sp.t0, (req.rid,))
             self.caches, tok0 = self.executor.prefill_rows(
                 self.caches, toks, row_ids)
-            # First decode input stays on the device: no sync at admission.
-            self.tok_dev[torch.as_tensor(rows, device=self.device), 0] = \
-                tok0[: len(group)]
+            # First decode input stays on the device: no sync at admission
+            # (the row index goes up pinned and without blocking).
+            self.tok_dev[self.executor._upload(rows, torch.long), 0] = tok0[: len(group)]
             if tr is not None:
                 tr.close(sp)
             for slot, req in zip(rows, group):

@@ -65,10 +65,32 @@ What the port changes, and why:
     an engine's ``last_logits`` and every other holder get their own copy.
   * **What stays eager.**  Uploads (positions, the live mask, probe rows:
     pinned memory, no sync), the bucket plan, the overflow snapshot and
-    restore, the packed fetch, and admission: ``prefill_rows`` and
-    ``reset_rows`` take a host-side row plan (sentinels are dropped on the
-    host, ``models/attention.py::plan_rows``), so they are not captured.
-    A step still makes exactly one host sync.
+    restore, the packed fetch, and ``reset_rows``, which takes a host-side
+    row plan.  A step still makes exactly one host sync.
+  * **Padded admission** (``padded_admission``: on the card, unsharded,
+    and every trunk block GQA or Mamba2 with a dense MLP or none).  The
+    row-targeted ``prefill_rows`` drops sentinel rows on the host
+    (``models/attention.py::plan_rows``, two blocking copies a layer) and
+    launches thousands of kernels a prompt.  Padded, each prompt runs one
+    sync-free body for one row, at the prompt-length rung that holds it:
+    rungs are the powers of two from 16 up to :data:`ADMISSION_TOP`, or to
+    the rings' capacity where that is less, the capacity then the last
+    rung (:func:`admission_ladder`).  The body
+    (:func:`~repro_torch.models.model.prefill` under a
+    :class:`~repro_torch.models.attention.PaddedPrompt`) leaves the row as
+    the unpadded prompt's prefill would, up to a GEMM's rounding at
+    another M.  Under graphs the executor keeps one CUDA graph per rung:
+    the first ``prefill_rows`` on a cache layout captures every rung at
+    once (on a sentinel row, which writes nothing; the first rung warmed
+    up eagerly first; one memory pool for the ladder), counted in
+    ``trace_counts`` under ``("prefill", rung)``; every later call only
+    replays, one replay per real prompt (``replays``), its tokens padded
+    to the rung and its row and length uploaded as one pinned,
+    non-blocking copy into the graph's static input.  Without graphs the
+    body is called directly.  A prompt longer than the top rung pays the
+    padded prompt's quadratic attention for more than the launches a
+    graph saves, so it takes the row-targeted prefill, as the CPU, a
+    sharded executor, and MoE, MLA, audio or vision trunks do.
   * **Caches update in place** (a full-size cache is 12.9 GB).  The
     reference re-runs an overflowed step from its immutable entry caches;
     here the step first snapshots what it can write and restores it before
@@ -89,7 +111,9 @@ What the port changes, and why:
     ``tiers.plan``, ``tiers.snapshot``, one ``tiers.segment`` per segment
     call, ``tiers.fetch``, ``tiers.rerun`` per overflow re-run and
     ``tiers.report``, with CUDA events around each graph replay and the
-    snapshot's clones; without one, nothing.
+    snapshot's clones; ``prefill_rows`` sets ``mode`` (``replay``,
+    ``eager`` or ``capture``) and ``bucket`` (the rung, or the prompt's
+    length when eager) on the span open around it; without one, nothing.
 
 Probe steps (the reference's exploration contract): ``probe_next = True``
 makes the next step evaluate every ``cfg.branch_layers`` head; the extra
@@ -205,6 +229,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import math
 import time
 from typing import Any, Sequence
@@ -217,6 +242,7 @@ from repro_torch.core.multitier import bucket_for, bucket_ladder
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
 from repro_torch.launch.mesh import mesh_devices
+from repro_torch.models.attention import PaddedPrompt
 from repro_torch.models.layers import norm_apply
 from repro_torch.models.model import (
     _unembed,
@@ -459,6 +485,72 @@ class _Graph:
     launches: dict[str, int]
 
 
+@contextlib.contextmanager
+def _collector_held():
+    """Python's cyclic collector held off for a CUDA graph capture: a
+    collection inside one can free another graph and release its memory
+    pool, a call that ends the capture in error."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
+#: The longest prompt padded admission takes.  Past it the padded prompt's
+#: quadratic prefill attention costs more than the launches a graph saves:
+#: on an H100 the row-targeted prefill of 1,025 tokens took 77 ms
+#: (Phi-3-mini) and 59 ms (Zamba2-1.2B), the replay at rung 2,048 156 and
+#: 86 ms (PERF.md §6).
+ADMISSION_TOP = 1024
+
+
+def admission_ladder(cap: int | None) -> tuple[int, ...]:
+    """The prompt-length rungs of padded admission for rings of ``cap``
+    slots (None: no ring): powers of two from 16 below ``cap``, then
+    ``cap`` itself, up to :data:`ADMISSION_TOP`."""
+    top = ADMISSION_TOP if cap is None else min(cap, ADMISSION_TOP)
+    out, b = [], 16
+    while b < top:
+        out.append(b)
+        b *= 2
+    return (*out, top)
+
+
+def admission_plan(bucket: int, tokens: np.ndarray, row: int) -> np.ndarray:
+    """An admission graph's one input, (bucket + 2,) int64: the prompt's
+    tokens padded on the right to ``bucket``, its length, its cache row
+    (the layout :meth:`TierExecutor._admit_padded` reads)."""
+    plan = np.zeros(bucket + 2, np.int64)
+    plan[:len(tokens)] = tokens
+    plan[bucket], plan[bucket + 1] = len(tokens), row
+    return plan
+
+
+def admission_graphable(cfg: ModelConfig) -> bool:
+    """Whether this config's prompts can take padded admission: a text
+    trunk whose every block is GQA or Mamba2 with a dense MLP or none.  A
+    routed expert's capacity would see the padding, and MLA's prefill has
+    not been captured."""
+    return cfg.frontend == "none" and all(
+        kind.mixer in ("gqa", "mamba") and kind.mlp in ("dense", "none")
+        and not kind.cross_attention for _, kind, _ in trunk_layout(cfg))
+
+
+@dataclasses.dataclass(eq=False)
+class _Admission:
+    """The admission graphs of one cache layout, one :class:`_Graph` per
+    rung (its one static input: the padded tokens, the true length and the
+    cache row; its output: the first decode token), sharing one memory
+    pool."""
+
+    binding: tuple
+    pool: Any
+    graphs: dict[int, _Graph] = dataclasses.field(default_factory=dict)
+
+
 def _leaves(tree):
     for v in (tree.values() if isinstance(tree, dict) else tree):
         if isinstance(v, (dict, tuple)):
@@ -608,12 +700,19 @@ class TierExecutor:
         self.failed_steps = 0
         self.fault_retries = 0
         #: key -> builds (eager variants, or graph captures) of its decode
-        #: segment; admission is not cached, so unlike the reference's this
-        #: holds no prefill keys.
+        #: segment, and under padded admission with graphs
+        #: ``("prefill", rung)`` -> captures of that rung's admission graph,
+        #: as the reference's ``("prefill", plen, n)`` jit keys count its
+        #: prefill traces.
         self.trace_counts: dict[tuple, int] = {}
-        #: key -> graph replays.
+        #: key -> graph replays (admission: one per admitted prompt).
         self.replays: dict[tuple, int] = {}
         self._fn_cache: dict[tuple, SegmentFn] = {}
+        #: Admission runs each prompt padded to its rung (module doc),
+        #: replayed from the rung's graph under graphs.
+        self.padded_admission = (self.device.type == "cuda" and not self.sharded
+                                 and admission_graphable(cfg))
+        self._admission: _Admission | None = None
         self._stream = None  # the capture stream, made at the first capture
         #: A :class:`~repro_torch.serving.trace.Tracer` while tracing; None
         #: = off.
@@ -905,8 +1004,8 @@ class TierExecutor:
         # capture only records, so the eager run above need not be finished.
         graph = torch.cuda.CUDAGraph()
         try:
-            with kernel_ops.recording() as recorded, torch.cuda.device(self.device), \
-                    torch.cuda.stream(stream):
+            with _collector_held(), kernel_ops.recording() as recorded, \
+                    torch.cuda.device(self.device), torch.cuda.stream(stream):
                 graph.capture_begin()
                 try:
                     static = self._run_segment(fn, caches, *inputs)
@@ -1452,18 +1551,122 @@ class TierExecutor:
     def prefill_rows(self, caches: dict, tokens, rows) -> tuple[dict, torch.Tensor]:
         """Admit a block of prompts into cache rows in place: prompt row i
         prefills row ``rows[i]``, ending exactly as a fresh solo prefill.
-        ``rows`` is a host-side plan; sentinel rows (>= batch) drop.  Runs
-        eagerly, also under graphs (see the module doc).  Returns (caches,
-        first decode input token per prompt row (n,), on the device — no
-        device-to-host sync).  An ``audio`` trunk raises, as the
-        reference's row-targeted prefill does: its encoder output is per
-        batch."""
+        ``rows`` is a host-side plan; sentinel rows (>= batch) drop.  Under
+        padded admission (module doc) each real row runs its rung's body,
+        replayed from the rung's graph under graphs, and a sentinel row
+        runs nothing (its token is 0); else the block runs as one
+        row-targeted prefill.  Returns (caches, first decode input token
+        per prompt row (n,), on the device — no device-to-host sync).  An
+        ``audio`` trunk raises, as the reference's row-targeted prefill
+        does: its encoder output is per batch."""
+        tokens = np.asarray(tokens)
+        rows = np.asarray(rows, np.int64)
+        plen = tokens.shape[1]
+        if self.padded_admission:
+            slots, rungs = self.admission_rungs(caches)
+            bucket = next((b for b in rungs if b >= plen), None)
+            if bucket is not None:
+                return caches, self._admit_padded_rows(caches, tokens, rows, rungs,
+                                                       bucket, slots)
+        if self.tracer is not None:
+            self.tracer.note(mode="eager", bucket=plen)
         toks = self._upload(tokens, torch.int64)
         with self.mesh_context():
             logits, caches = prefill(self.params, toks, self.cfg, caches,
-                                     rows=np.asarray(rows, np.int64),
-                                     use_kernels=self.use_kernels)
+                                     rows=rows, use_kernels=self.use_kernels)
             return caches, shard_ctx.plain(logits[:, 0]).argmax(-1).to(torch.int32)
+
+    def admission_rungs(self, caches) -> tuple[int, tuple[int, ...]]:
+        """(the caches' batch, the rungs of padded admission into them:
+        :func:`admission_ladder` of their rings' capacity).  A prompt longer
+        than the last rung takes the row-targeted prefill."""
+        rings, states = self._stateful(caches)
+        if rings:
+            return rings[0]["pos"].shape[1], admission_ladder(rings[0]["pos"].shape[2])
+        return states[0]["ssm"].shape[1], admission_ladder(None)
+
+    def _admit_padded_rows(self, caches, tokens: np.ndarray, rows: np.ndarray,
+                           rungs: tuple[int, ...], bucket: int, slots: int) -> torch.Tensor:
+        """Padded admission: each real row fills one pinned buffer (its
+        tokens padded to ``bucket``, its length, its row) and uploads it
+        without blocking; under graphs into the rung's static input, then
+        replays (the first call on a cache layout captures every rung of
+        the ladder), else into the body called directly.  The row's first
+        token is copied into its place."""
+        g = None
+        if self.graphs:
+            _, binding = self._layout(caches)
+            adm = self._admission
+            if adm is None or adm.binding != binding:
+                adm = self._admission = _Admission(binding, torch.cuda.graph_pool_handle())
+            missing = [b for b in rungs if b not in adm.graphs]
+            if self.tracer is not None:
+                self.tracer.note(mode="capture" if missing else "replay", bucket=bucket)
+            if missing:
+                self._capture_admission(caches, adm, missing, slots)
+            g, key = adm.graphs[bucket], ("prefill", bucket)
+        elif self.tracer is not None:
+            self.tracer.note(mode="eager", bucket=bucket)
+        out = torch.zeros(len(rows), dtype=torch.int32, device=self.device)
+        for i in np.flatnonzero(rows < slots):
+            plan = torch.from_numpy(admission_plan(bucket, tokens[i], rows[i])).pin_memory()
+            if g is None:
+                out[i:i + 1] = self._admit_padded(
+                    caches, plan.to(self.device, non_blocking=True), bucket)
+                continue
+            g.inputs[0].copy_(plan, non_blocking=True)
+            g.graph.replay()
+            kernel_ops.add_launches(g.launches)
+            self.replays[key] = self.replays.get(key, 0) + 1
+            out[i:i + 1].copy_(g.out)
+        return out
+
+    def _admit_padded(self, caches, plan: torch.Tensor, bucket: int) -> torch.Tensor:
+        """The admission body of one rung: the prefill of ``plan``'s prompt
+        (:class:`~repro_torch.models.attention.PaddedPrompt`), returning its
+        first decode token (1,)."""
+        toks = plan[:bucket].view(1, bucket)
+        logits, _ = prefill(self.params, toks, self.cfg, caches,
+                            rows=PaddedPrompt(plan[bucket + 1:], plan[bucket:bucket + 1]),
+                            use_kernels=self.use_kernels)
+        return logits[:, 0].argmax(-1).to(torch.int32)
+
+    def _capture_admission(self, caches, adm: _Admission, rungs, slots: int) -> None:
+        """Capture each rung on a sentinel row, so that nothing writes a
+        cache row.  The first rung runs eagerly on the capture stream
+        before its capture, as :meth:`_capture` does for a segment (it
+        loads the kernels and settles cuBLAS); the later rungs, whose calls
+        differ only in shapes, are captured directly (on an H100, a warm-up
+        for each of Phi-3-mini's nine rungs to 4,096 cost ~1.3 s more set-up
+        and gave the same rows and tokens).  Each capture holds Python's
+        collector off (:func:`_collector_held`).  A capture that fails
+        raises."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream, cur = self._stream, torch.cuda.current_stream(self.device)
+        for n, b in enumerate(rungs):
+            plan = admission_plan(b, np.zeros(b, np.int64), slots)
+            static = torch.from_numpy(plan).pin_memory().to(self.device, non_blocking=True)
+            stream.wait_stream(cur)
+            if n == 0:
+                with torch.cuda.stream(stream):
+                    self._admit_padded(caches, static, b)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with _collector_held(), kernel_ops.recording() as recorded, \
+                        torch.cuda.device(self.device), torch.cuda.stream(stream):
+                    graph.capture_begin(pool=adm.pool)
+                    try:
+                        out = self._admit_padded(caches, static, b)
+                    finally:
+                        graph.capture_end()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"capturing the admission graph of rung {b} failed") from e
+            cur.wait_stream(stream)
+            adm.graphs[b] = _Graph(adm.binding, graph, (static,), out, recorded)
+            key = ("prefill", b)
+            self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
 
     def reset_rows(self, caches: dict, rows) -> dict:
         """Mark cache rows empty without moving K/V: ring slot validity

@@ -11,7 +11,9 @@ happens; a span nests in the innermost span open when it opens:
 
     sched.step (step, live, admitted)        RequestScheduler.step
       sched.admit
-        admit.prefill (rids; plen, rows)     one per prefill_rows call
+        admit.prefill (rids; plen, rows,     one per prefill_rows call:
+                       mode, bucket)         mode replay, eager or capture;
+                                             bucket the rung (eager: plen)
       tiers.step                             TierExecutor.step
         tiers.plan                           uploads, probes, buckets
         tiers.snapshot (bytes)               the overflow snapshot

@@ -143,6 +143,18 @@ def test_admission_counters(served):
                for s in admits)
 
 
+def test_admission_mode_and_bucket(served):
+    """Each admission says how it ran and at what length: on the CPU
+    eagerly, at the prompts' own length (padded admission's rung and
+    ``replay`` / ``capture`` are held on the card,
+    ``test_torch_prefill_ladder.py``)."""
+    _, _, _, _, _, ex_on, tracer = served
+    admits = [s for s in tracer.spans if s.name == "admit.prefill"]
+    assert admits and not ex_on.padded_admission
+    assert all(s.attrs["mode"] == "eager" and s.attrs["bucket"] == s.attrs["plen"]
+               for s in admits)
+
+
 def _snapshot_bytes_by_hand(caches) -> int:
     """Every step counter; each KV ring's one slot per layer and row; each
     Mamba2 layer's whole conv window and SSM state."""
